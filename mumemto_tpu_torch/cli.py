@@ -1,0 +1,165 @@
+"""mumemto-compatible build command for the PyTorch port.
+
+    python -m mumemto_tpu_torch a.fa b.fa ... -o out [--device cuda]
+
+Parses the same build flags as mumemto_tpu/cli.py (src/pfp_mum.cpp:255-313
+in the reference) plus --device, and writes PREFIX.lengths and
+PREFIX.mums. Flags and subcommands whose code paths are not ported yet
+fail with a "not yet ported" error instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+VERSION = "1.4.0"
+
+SUBCOMMANDS = ("viz", "inversion", "coverage", "collinear", "convert", "view",
+               "extract", "label", "lengths", "merge", "bed", "trim",
+               "density", "tabix", "convert-thresh", "mori")
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="mumemto_tpu_torch",
+        description="mumemto - find maximal [unique | exact] matches using "
+                    "PFP (PyTorch port).")
+    ap.add_argument("files", nargs="*", help="input FASTA files")
+    ap.add_argument("-i", "--input", dest="input_list", default="",
+                    help="path to a file-list of genomes (overrides positional args)")
+    ap.add_argument("-o", "--output", dest="output_prefix", default="output",
+                    help="output prefix path")
+    ap.add_argument("-r", "--no-revcomp", dest="use_rcomp", action="store_false",
+                    help="do not include the reverse complement")
+    ap.add_argument("-b", "--binary", action="store_true",
+                    help="output binary format (multi-MUMs only)")
+    ap.add_argument("-A", "--arrays-out", action="store_true",
+                    help="write LCP, BWT, and SA to file")
+    ap.add_argument("-a", "--arrays-in", default="",
+                    help="compute matches from precomputed arrays (PREFIX.bwt/sa/lcp)")
+    ap.add_argument("-M", "--merge", action="store_true",
+                    help="output extra metadata to enable merging multi-MUMs")
+    ap.add_argument("-n", "--anchor", dest="anchor_merge", action="store_true",
+                    help="use anchor-based merging (requires -M)")
+    ap.add_argument("-l", "--min-match-len", type=int, default=20)
+    ap.add_argument("-k", "--minimum-genomes", dest="num_distinct_docs",
+                    type=int, default=0)
+    ap.add_argument("-f", "--per-seq-freq", dest="rare_freq", type=int, default=1)
+    ap.add_argument("-F", "--max-total-freq", dest="max_mem_freq", type=int,
+                    default=0)
+    ap.add_argument("-w", "--window", dest="pfp_w", type=int, default=10)
+    ap.add_argument("-m", "--modulus", dest="hash_mod", type=int, default=100)
+    ap.add_argument("-p", "--from-parse", dest="parse_prefix", default="")
+    ap.add_argument("-K", "--keep-temp-files", action="store_true",
+                    help="accepted for reference-CLI compatibility; the PFP "
+                         "is in-memory, so no temp .dict/.parse files exist")
+    ap.add_argument("-g", "--use-gsacak", action="store_true",
+                    help="use the direct suffix-array backend (no PFP)")
+    ap.add_argument("-P", "--only-parse", action="store_true")
+    ap.add_argument("--seq-shards", type=int, default=0, metavar="N",
+                    help="shard one collection's scan over N devices")
+    ap.add_argument("-s", "--no-overlap", dest="overlap", action="store_false",
+                    help=argparse.SUPPRESS)  # parsed but unused (legacy)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run the scan on (default: cuda)")
+    ap.add_argument("--version", action="version", version=VERSION)
+    return ap
+
+
+def read_filelist(path: str) -> list:
+    files = []
+    with open(path) as f:
+        for line in f:
+            words = line.split()
+            if words:
+                files.append(words[0])
+    return files
+
+
+def _unported_flags(args) -> list:
+    """The given flags whose code paths the port does not have yet."""
+    checks = [
+        (args.rare_freq != 1, "-f/--per-seq-freq other than 1 (MEM mode)"),
+        (args.max_mem_freq != 0, "-F/--max-total-freq"),
+        (args.merge, "-M/--merge"),
+        (args.anchor_merge, "-n/--anchor"),
+        (args.binary, "-b/--binary"),
+        (args.only_parse, "-P/--only-parse"),
+        (bool(args.parse_prefix), "-p/--from-parse"),
+        (args.arrays_out, "-A/--arrays-out"),
+        (bool(args.arrays_in), "-a/--arrays-in"),
+        (args.use_gsacak, "-g/--use-gsacak"),
+        (args.seq_shards != 0, "--seq-shards"),
+    ]
+    return [name for bad, name in checks if bad]
+
+
+def build_main(argv) -> int:
+    from mumemto_tpu import options, refbuilder
+    from mumemto_tpu_torch import engine
+    from mumemto_tpu_torch.device import resolve
+
+    args = build_argparser().parse_args(argv)
+    unported = _unported_flags(args)
+    if unported:
+        print("Error: not yet ported to mumemto_tpu_torch: "
+              + ", ".join(unported) + " (see ROADMAP.md; use "
+              "python -m mumemto_tpu for these)", file=sys.stderr)
+        return 2
+    if args.input_list:
+        if args.files:
+            print("[build_main] Using filelist, ignoring positional args",
+                  file=sys.stderr)
+        files = read_filelist(args.input_list)
+    else:
+        files = args.files
+    if not files:
+        print("Error: Need to provide a file-list or files as positional args "
+              "for processing.", file=sys.stderr)
+        return 1
+    device = resolve(args.device)
+
+    t_start = time.time()
+    rb = refbuilder.build_from_files(files, use_revcomp=args.use_rcomp)
+    rb.write_lengths_file(args.output_prefix)
+    print(f"[build_main] reference built ({time.time() - t_start:.2f}s, "
+          f"{rb.text.size / 1e6:.1f}M chars, {rb.num_docs} docs)",
+          file=sys.stderr)
+    opts = options.normalize(
+        rb.num_docs, min_match_len=args.min_match_len,
+        num_distinct_docs=args.num_distinct_docs, rare_freq=args.rare_freq,
+        max_mem_freq=args.max_mem_freq, use_revcomp=args.use_rcomp)
+    t0 = time.time()
+    results = engine.find_matches(rb, opts, device=device, pfp_w=args.pfp_w,
+                                  pfp_mod=args.hash_mod)
+    print(f"[build_main] match scan finished on {device} "
+          f"({time.time() - t0:.2f}s)", file=sys.stderr)
+    engine.write_outputs(results, rb, args.output_prefix)
+    print(f"[build_main] {results.num_matches} matches found "
+          f"(total {time.time() - t_start:.2f}s)", file=sys.stderr)
+    if results.bwt_runs:
+        n, r = results.text_length, results.bwt_runs
+        print(f"[build_main] n = {n}, r = {r}, n/r = {n / r:.3f}",
+              file=sys.stderr)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in SUBCOMMANDS:
+        print(f"Error: the '{argv[0]}' subcommand is not yet ported to "
+              "mumemto_tpu_torch (see ROADMAP.md; use python -m mumemto_tpu "
+              f"{argv[0]})", file=sys.stderr)
+        return 2
+    from mumemto_tpu import options
+    try:
+        return build_main(argv)
+    except (options.InputError, FileNotFoundError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

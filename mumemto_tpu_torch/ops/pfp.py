@@ -1,0 +1,582 @@
+"""Prefix-free parsing pipeline: text -> PFP -> SA-row stream, in PyTorch.
+
+Port of the main path of mumemto_tpu/ops/pfp.py (see its module docstring
+for the algorithm):
+
+  1. parse      Karp-Rabin window-hash breaks (the CUDA kernel
+                kernels/kr_mask.py on the card), compacted with nonzero.
+  2. dictionary unique phrases sorted on the host (native C++ sort).
+  3. dict index D materialized on the device, depth-capped prefix
+                doubling, PLCP or rank-descent LCP, suffix groups.
+  4. parse side parse SA + LCP + ISA, s_lcp_T and its range-min table.
+  5. expansion  one row per text position, stably sorted by
+                (group id, parse ISA) into SA order; per-row LCP from the
+                PFP tables, then the windowed interval analysis.
+
+Pad rows get sort key -1 so they land at the front of the row stream with
+LCP 0 and doc id num_docs. Row arrays are int32 (nr-scale); sort keys and
+the s_lcp_T character sums are int64. Out-of-range scatter targets that
+the JAX code drops by default are masked here explicitly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from mumemto_tpu_torch.kernels import kr_mask
+from mumemto_tpu_torch.ops import intervals as ops_intervals
+from mumemto_tpu_torch.ops import suffix as ops_suffix
+from mumemto_tpu_torch.ops.suffix import I32, I64
+
+DOLLAR_PFP = 2   # artificial phrase decoration char (common.hpp:54)
+SEP = 1          # EndOfWord (dict phrase separator)
+TERM = 0         # EndOfDict / parse terminator
+
+# canonical no-N DNA text alphabet incl. the PFP decoration chars
+CANON_ALPHA = (0, 1, 2, 36, 65, 67, 71, 84)
+
+
+def bucket(n: int, lo: int = 1024) -> int:
+    """0.75/1.0-of-a-power-of-two size bucket (the JAX package's shapes)."""
+    n = max(n, lo)
+    p = 1 << (n - 1).bit_length()
+    if p // 2 + p // 4 >= n:
+        return p // 2 + p // 4
+    return p
+
+
+def _noop_phase(name: str) -> None:
+    pass
+
+
+# ---------------------------------------------------------------------------
+# 1. parse
+# ---------------------------------------------------------------------------
+
+def _compact_breaks(mask: torch.Tensor) -> torch.Tensor:
+    """Indices of mask=True, ascending."""
+    return torch.nonzero(mask).flatten()
+
+
+def compute_breaks(ext: torch.Tensor, n_text: int, w: int, mod: int
+                   ) -> np.ndarray:
+    """Break positions (window-end chars) in TEXT coords, as int32 numpy."""
+    mask, count = kr_mask.break_mask(ext, n_text, w, mod)
+    if int(count) == 0:
+        return np.zeros(0, dtype=np.int32)
+    breaks = _compact_breaks(mask).to(I32).cpu().numpy()
+    return breaks - 1  # ext coord -> text coord
+
+
+# ---------------------------------------------------------------------------
+# 2. dictionary
+# ---------------------------------------------------------------------------
+
+def sort_phrases(ext_np: np.ndarray, st_np: np.ndarray, ln_np: np.ndarray):
+    """Lex-sort phrase records on the host; returns (order, grp), grp the
+    0-based rank group in sorted order (equal phrases share grp). Native
+    C++ sort when the extension builds, else Python's sort."""
+    from mumemto_tpu.native import get_native
+    nat = get_native()
+    if nat is not None and hasattr(nat, "sort_phrases"):
+        order_b, grp_b = nat.sort_phrases(
+            np.ascontiguousarray(ext_np),
+            np.ascontiguousarray(st_np, dtype=np.int32),
+            np.ascontiguousarray(ln_np, dtype=np.int32))
+        return (np.frombuffer(order_b, dtype=np.int32).copy(),
+                np.frombuffer(grp_b, dtype=np.int32).copy())
+    m = int(st_np.size)
+    keys = [ext_np[s:s + l].tobytes()
+            for s, l in zip(st_np.tolist(), ln_np.tolist())]
+    order = sorted(range(m), key=keys.__getitem__)
+    grp = np.empty(m, np.int32)
+    g = -1
+    prev = None
+    for rank, rec in enumerate(order):
+        k = keys[rec]
+        if k != prev:
+            g += 1
+            prev = k
+        grp[rank] = g
+    return np.asarray(order, dtype=np.int32), grp
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def _segmented_min_after_valid(lcp: torch.Tensor,
+                               valid: torch.Tensor) -> torch.Tensor:
+    """out[i] = min(lcp[j]) over j in (prev_valid_row(i), i], exact at
+    valid rows (the only rows any consumer reads)."""
+    n = lcp.shape[0]
+    seg_start = torch.ones(n, dtype=I32, device=lcp.device)
+    seg_start[1:] = valid[:-1].to(I32)
+    seg_id = (torch.cumsum(seg_start, 0, dtype=I32) - 1).to(I64)
+    seg_min = torch.full((n,), ops_intervals.INT32_MAX, dtype=I32,
+                         device=lcp.device)
+    seg_min.scatter_reduce_(0, seg_id, lcp, reduce="amin", include_self=True)
+    return seg_min[seg_id]
+
+
+def _rmq_query(table: list, lo: torch.Tensor, hi: torch.Tensor):
+    """min(values[lo..hi]) inclusive, O(1): two gathers into the
+    level-major flat copy of the sparse table."""
+    n = table[0].shape[0]
+    L1 = len(table)
+    if n * L1 >= 2**31:
+        raise ValueError(f"range-min table of {L1} levels x {n} entries "
+                         "would overflow int32 flat indexing")
+    length = torch.clamp(hi - lo + 1, min=1)
+    # exact floor(log2): frexp of an int32 held in float64 is exact
+    lvl = (torch.frexp(length.to(torch.float64)).exponent - 1).to(I32)
+    lvl = torch.clamp(lvl, 0, L1 - 1)
+    width = torch.ones_like(lvl) << lvl
+    flat = torch.cat(list(table))
+    base = lvl * n
+    ia = base + torch.clamp(lo, 0, n - 1)
+    ib = base + torch.clamp(hi - width + 1, 0, n - 1)
+    return torch.minimum(flat[ia], flat[ib])
+
+
+def _fill_per_occ(values: torch.Tensor, starts_idx: torch.Tensor, nr: int):
+    """row_value[r] = values[j] for rows r of occurrence j: scatter-add the
+    first differences at the occurrence start rows, then one cumsum.
+    Start indices >= nr (pad slots) are dropped."""
+    delta = torch.cat([values[:1], values[1:] - values[:-1]]).to(I32)
+    keep = starts_idx < nr
+    acc = torch.zeros(nr, dtype=I32, device=values.device)
+    acc.index_add_(0, starts_idx[keep], delta[keep])
+    return torch.cumsum(acc, 0, dtype=I32)
+
+
+# ---------------------------------------------------------------------------
+# main pipeline
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PFPData:
+    """Host-side metadata + the device ext array for one parsed collection."""
+    w: int
+    n_text: int
+    m: int                 # number of parse entries
+    num_phrases: int       # unique phrases
+    d_len: int             # dictionary string length
+    ext: torch.Tensor      # [2] + text + [2]*w + zero pad (uint8, device)
+    parse: np.ndarray      # phrase ids (1-based), length m
+    phrase_st: np.ndarray  # ext start per unique phrase id (index 0 unused)
+    phrase_ln: np.ndarray  # char length per unique phrase id
+    alpha: tuple           # sorted distinct byte values present in ext
+
+
+def seed_thresholds(alpha):
+    """(seed_thr, lcp_thr) split points for a sorted distinct byte list:
+    the 8-char 3-bit SA seed needs <= 8 values, the packed 7-char LCP
+    bottom <= 16."""
+    alpha = sorted(alpha)
+    if set(alpha) <= set(CANON_ALPHA):
+        seed_thr = CANON_ALPHA[:-1]
+    elif len(alpha) <= 8:
+        seed_thr = tuple(alpha[:-1])
+    else:
+        seed_thr = None
+    lcp_thr = tuple(alpha[:-1]) if len(alpha) <= 16 else None
+    if seed_thr is not None and lcp_thr is not None:
+        lcp_thr = seed_thr
+    return seed_thr, lcp_thr
+
+
+def _alphabet(bytes_np: np.ndarray) -> tuple:
+    """Sorted distinct byte values via a presence mask over a uint16 view."""
+    bytes_np = np.ascontiguousarray(bytes_np)
+    even = bytes_np[:bytes_np.size & ~1]
+    present16 = np.zeros(65536, np.bool_)
+    present16[even.view(np.uint16)] = True
+    pairs = np.flatnonzero(present16)
+    present = np.zeros(256, np.bool_)
+    present[pairs & 255] = True
+    present[pairs >> 8] = True
+    if bytes_np.size & 1:
+        present[bytes_np[-1]] = True
+    return tuple(np.flatnonzero(present).tolist())
+
+
+def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
+              mod: int = 100) -> PFPData:
+    """Parse the collection text: upload ext, KR breaks on the device,
+    phrase records and their lexicographic ranks on the host."""
+    n_text = int(text_np.size)
+    ext_np = np.concatenate([
+        np.full(1, DOLLAR_PFP, np.uint8), text_np,
+        np.full(w, DOLLAR_PFP, np.uint8)])
+    ne = bucket(ext_np.size)
+    ext_pad = np.zeros(ne, np.uint8)
+    ext_pad[:ext_np.size] = ext_np
+    ext = torch.from_numpy(ext_pad).to(device)
+    alpha = _alphabet(ext_np)
+
+    breaks = compute_breaks(ext, n_text, w, mod)
+    k = breaks.size
+    m = k + 1
+    st = np.empty(m, np.int32)
+    en = np.empty(m, np.int32)
+    st[0] = 0
+    if k:
+        st[1:] = breaks - w + 2
+        en[:-1] = breaks + 1
+    en[-1] = n_text + w
+    ln = en - st + 1
+
+    order, grp = sort_phrases(ext_pad, st, ln)
+    num_phrases = int(grp[-1]) + 1 if order.size else 0
+    first = np.concatenate([[True], grp[1:] != grp[:-1]])
+    rep = order[first]
+    phrase_st = np.zeros(num_phrases + 1, np.int32)
+    phrase_ln = np.zeros(num_phrases + 1, np.int32)
+    phrase_st[1:] = st[rep]
+    phrase_ln[1:] = ln[rep]
+    parse = np.zeros(m, np.int32)
+    parse[order] = grp + 1
+    return PFPData(w=w, n_text=n_text, m=m, num_phrases=num_phrases,
+                   d_len=int(phrase_ln.sum()) + num_phrases + 1,
+                   ext=ext, parse=parse, phrase_st=phrase_st,
+                   phrase_ln=phrase_ln, alpha=alpha)
+
+
+def _dict_setup(ext, phrase_st, phrase_ln, d_starts, npz: int, total: int,
+                nd: int, ne: int):
+    """D = concat(sorted phrases + SEP) + TERM, zero-padded to nd, and the
+    per-position proper-suffix length (-1 outside proper phrase suffixes).
+    Phrase arrays are bucket-padded with zero-length pads at d_starts ==
+    total; their scatters are dropped."""
+    dev = ext.device
+    npzb = phrase_st.shape[0] - 1
+    pos = torch.arange(nd, dtype=I32, device=dev)
+    ids = torch.arange(1, npzb + 1, dtype=I32, device=dev)
+    st_idx = torch.where(ids <= npz, torch.clamp(d_starts[1:], 0, nd - 1), nd)
+    d_start_of = _fill_per_occ(d_starts[1:], st_idx, nd)
+    st_of = _fill_per_occ(phrase_st[1:], st_idx, nd)
+    plen_of = _fill_per_occ(phrase_ln[1:], st_idx, nd)
+    off = pos - d_start_of
+    in_phrase = off < plen_of
+    ch = ext[torch.clamp(st_of + off, 0, ne - 1)]
+    d = torch.where(in_phrase, ch, SEP).to(torch.uint8)
+    d = torch.where(pos >= total, TERM, d).to(torch.uint8)
+    good = in_phrase & (pos < total) & (off >= 1)
+    meta = torch.where(good, plen_of - off, -1).to(I32)
+    return d, meta
+
+
+def _dict_starts(phrase_ln: np.ndarray) -> np.ndarray:
+    """Start offset in D per phrase id (1-based); D blocks are len+1."""
+    npz = phrase_ln.size - 1
+    starts = np.zeros(npz + 1, np.int64)
+    starts[1:] = np.cumsum(phrase_ln[1:] + 1) - (phrase_ln[1:] + 1)
+    return starts.astype(np.int32)
+
+
+def _dict_index(ext, phrase_st, phrase_ln, d_starts, npz: int, total: int,
+                nd: int, ne: int, w: int, lvl_cap: int, lvl_static: int,
+                seed_thr, lcp_thr, probe_words: int = 2):
+    """Dictionary index: D, depth-capped SA doubling, LCP (PLCP for <= 8
+    letters, rank descent otherwise), ISA and suffix groups. Returns
+    (d, lcpD, isaD, grp_of_pos, grp_cross)."""
+    d, pos_meta = _dict_setup(ext, phrase_st, phrase_ln, d_starts, npz,
+                              total, nd, ne)
+    saD, histD, lvlD = ops_suffix._suffix_array_impl(
+        d, nd, packed_init=True, max_lvl=lvl_cap, alpha_thresholds=seed_thr)
+    if seed_thr is not None:
+        lcpD, isaD = ops_suffix._lcp_plcp_impl(
+            saD, histD, d, nd, lvl_static, seed_thr,
+            deep_cap=max(nd // 3, 1024), probe_words=probe_words)
+    else:
+        lcpD = ops_suffix._lcp_impl(saD, histD, lvlD, nd, levels=lvl_static,
+                                    text=d, bottom_thresholds=lcp_thr)
+        isaD = _isa_dev(saD, nd)
+    lcpD = ops_suffix.canonicalize_pad_lcp(lcpD, saD, total, nd)
+    grp_of_pos, grp_cross = _dict_groups(d, saD, lcpD, pos_meta, nd, w)
+    return d, lcpD, isaD, grp_of_pos, grp_cross
+
+
+def _dict_groups(d, saD, lcpD, pos_meta, nd: int, w: int):
+    """Group valid dict suffixes (same string across phrases):
+    grp_of_pos[d_pos] = group id of the valid suffix at d_pos, else -1;
+    grp_cross[g] = cross-group LCP at the first row of group g."""
+    dev = d.device
+    suf_len = pos_meta[saD]
+    valid = suf_len >= w
+    gapmin = _segmented_min_after_valid(lcpD, valid)
+    idx = torch.arange(nd, dtype=I32, device=dev)
+    last_valid = torch.cummax(torch.where(valid, idx, -1), 0).values
+    prev_valid_idx = torch.cat([torch.full((1,), -1, dtype=I32, device=dev),
+                                last_valid[:-1]])
+    prev_len = torch.where(prev_valid_idx >= 0,
+                           suf_len[torch.clamp(prev_valid_idx, min=0)], -1)
+    same = valid & (gapmin >= suf_len) & (prev_len == suf_len)
+    new_group = valid & ~same
+    grp_of_row = torch.cumsum(new_group.to(I32), 0, dtype=I32) - 1
+    grp_cross = torch.zeros(nd, dtype=I32, device=dev)
+    grp_cross[grp_of_row[new_group]] = gapmin[new_group]
+    grp_cross[0] = 0
+    grp_of_pos = ops_suffix.route_set(saD, torch.where(valid, grp_of_row, -1))
+    return grp_of_pos, grp_cross
+
+
+def _isa_dev(sa: torch.Tensor, n: int) -> torch.Tensor:
+    return ops_suffix.route_set(
+        sa, torch.arange(n, dtype=I32, device=sa.device))
+
+
+def _pad_phrase_arrays(pfp: PFPData):
+    """Bucket-pad the per-phrase arrays for _dict_setup: zero-length pad
+    phrases at the end-of-dictionary sentinel. Returns numpy
+    (phrase_st, phrase_ln, d_starts_pad, npz, total_real, nd)."""
+    d_starts = _dict_starts(pfp.phrase_ln)
+    # +4 trailing TERM pads: the packed SA seed reads up to 3 chars past
+    # a suffix start
+    nd = bucket(pfp.d_len + 4)
+    npz = pfp.num_phrases
+    npzb = bucket(npz + 1, lo=64) - 1
+    total_real = pfp.d_len - 1
+    phrase_st = np.zeros(npzb + 1, np.int32)
+    phrase_ln = np.zeros(npzb + 1, np.int32)
+    d_starts_pad = np.full(npzb + 1, total_real, np.int32)
+    phrase_st[:npz + 1] = pfp.phrase_st
+    phrase_ln[:npz + 1] = pfp.phrase_ln
+    d_starts_pad[:npz + 1] = d_starts
+    return phrase_st, phrase_ln, d_starts_pad, npz, total_real, nd
+
+
+def _host_prep(pfp: PFPData, doc_ends: np.ndarray):
+    """Host-side preparation for a scan: bucket-padded phrase arrays and
+    parse arrays (uploaded to ext's device), the expansion row layout and
+    the size parameters. Row and text coordinates are int32."""
+    dev = pfp.ext.device
+    w = pfp.w
+    phrase_st, phrase_ln, d_starts_pad, npz, total_real, nd = \
+        _pad_phrase_arrays(pfp)
+    # the dict order and LCP values are consumed only up to maxlen+1
+    # chars, so the doubling and the descent stop at log2(maxlen) rounds
+    maxlen = int(pfp.phrase_ln.max()) if pfp.phrase_ln.size > 1 else 1
+    lvl_cap = (maxlen + 2).bit_length()
+    alpha = sorted(set(pfp.alpha) | {TERM, SEP, DOLLAR_PFP})
+    seed_thr, lcp_thr = seed_thresholds(alpha)
+    lvl_run = min(ops_suffix._num_levels(nd), lvl_cap) + 1
+    lvl_static = min((lvl_run + 1) // 2 * 2, lvl_run, lvl_cap)
+
+    m = pfp.m
+    mp = bucket(m + 1, lo=64)
+    pprime = np.zeros(mp, np.int32)
+    pprime[:m] = pfp.parse
+    charlen = np.zeros(mp + 1, np.int64)
+    charlen[:m] = pfp.phrase_ln[pfp.parse] - w
+    cumC = np.concatenate([[0], np.cumsum(charlen)])
+
+    cnt = (pfp.phrase_ln[pfp.parse] - w).astype(np.int64)
+    n_rows = int(cnt.sum())
+    nr = bucket(n_rows)
+    cumcnt = np.zeros(mp + 1, np.int32)
+    cumcnt[1:m + 1] = np.cumsum(cnt)
+    cumcnt[m + 1:] = n_rows
+
+    def up(a, dtype=I32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+    return {
+        "phrase_st": up(phrase_st), "phrase_ln": up(phrase_ln),
+        "d_starts": up(d_starts_pad), "npz": npz, "total_real": total_real,
+        "parse": up(pprime), "cumC": up(cumC, I64), "cumcnt": up(cumcnt),
+        "m": m, "total_rows": n_rows, "n_text": pfp.n_text,
+        "doc_ends": up(doc_ends.astype(np.int64)),
+        "ne": int(pfp.ext.shape[0]), "nd": nd, "nr": nr, "mp": mp, "w": w,
+        "lvl_cap": lvl_cap, "lvl_static": lvl_static, "seed_thr": seed_thr,
+        "lcp_thr": lcp_thr,
+    }
+
+
+def _parse_side(pprime, cumC, d_starts, lcpD, isaD, mp: int):
+    """Parse SA + rank-descent LCP + ISA + s_lcp_T and its range-min
+    table, all mp-scale. Returns (isaP, slt_table)."""
+    saP, histP, lvlP = ops_suffix._suffix_array_impl(pprime, mp)
+    klcp = ops_suffix._lcp_impl(saP, histP, lvlP, mp)
+    isaP = _isa_dev(saP, mp)
+    slt = _build_slt(pprime, saP, klcp, cumC, d_starts, lcpD, isaD, mp)
+    return isaP, ops_intervals._sparse_min_table(slt)
+
+
+def _build_slt(pprime, saP, klcp, cumC, d_starts, lcpD, isaD, mp: int):
+    """SLT[r] = char-LCP of the text suffixes at the phrase starts of
+    parse-SA rows r-1 and r (the reference's s_lcp_T, pfp.hpp:210-244).
+    The character sum is int64 and saturates at 2^31-1, like the JAX
+    package's uint32 form."""
+    a = torch.cat([saP[:1], saP[:-1]])
+    b = saP
+    k = klcp
+    c = (cumC[torch.clamp(a + k, 0, mp)] - cumC[torch.clamp(a, 0, mp)])
+    x = pprime[torch.clamp(a + k, 0, mp - 1)]
+    y = pprime[torch.clamp(b + k, 0, mp - 1)]
+    xr = isaD[d_starts[x]]
+    yr = isaD[d_starts[y]]
+    lo = torch.minimum(xr, yr) + 1
+    hi = torch.maximum(xr, yr)
+    tab = ops_intervals._sparse_min_table(lcpD)
+    pair = _rmq_query(tab, lo, hi)
+    pair = torch.where((x == 0) | (y == 0) | (x == y), 0, pair)
+    slt = torch.clamp(c + pair.to(I64), max=2**31 - 1).to(I32)
+    slt[0] = 0
+    return slt
+
+
+def _grp_tab(d, grp_of_pos, grp_cross, nd: int):
+    """Per dict position: group id (-1 invalid), previous dict char (the
+    BWT char of rows at this position), and the group's cross LCP."""
+    prev_d = torch.zeros(nd, dtype=I32, device=d.device)
+    prev_d[1:] = d[:-1].to(I32)
+    cross_of_pos = grp_cross[torch.clamp(grp_of_pos, 0,
+                                         grp_cross.shape[0] - 1)]
+    return grp_of_pos, prev_d, cross_of_pos
+
+
+def _expand_operands(parse, d_starts, cumcnt, m: int, total_rows: int,
+                     n_text: int, isaP, grp_tab, doc_ends, nr: int, nd: int,
+                     w: int, num_docs: int):
+    """One row per text position r: (key1, key2, ssa, suf_len, bwt,
+    doc id, cross LCP). key1 = group id at the row's dict position (-1 for
+    pads), key2 = isaP of the next parse position; the text position of
+    row r is r itself (occurrences tile the text with w-overlap)."""
+    dev = parse.device
+    r = torch.arange(nr, dtype=I32, device=dev)
+    mp1 = cumcnt.shape[0]
+    slots = torch.arange(mp1 - 1, dtype=I32, device=dev)
+    starts_idx = torch.where(slots < m, torch.clamp(cumcnt[:-1], 0, nr - 1),
+                             nr)
+    pad = r >= total_rows
+
+    base = cumcnt[:-1]
+    pid_tab = parse[:mp1 - 1]
+    keep = starts_idx < nr
+    nxt = torch.zeros(nr, dtype=I32, device=dev)
+    nxt.scatter_reduce_(0, starts_idx[keep].to(I64), cumcnt[1:][keep],
+                        reduce="amax", include_self=True)
+    next_start = torch.cummax(nxt, 0).values
+    suf_len = next_start + (w - 1) - r
+    dictpos = r + _fill_per_occ(d_starts[pid_tab] - base + 1, starts_idx, nr)
+    ssa = torch.clamp(r, max=n_text)
+    k2_vals = torch.cat([isaP[1:mp1 - 1],
+                         torch.zeros(1, dtype=I32, device=dev)])
+    key2 = torch.where(pad, 0, _fill_per_occ(k2_vals, starts_idx, nr))
+
+    ends_idx = torch.clamp(doc_ends, 0, nr - 1)
+    bounds = torch.zeros(nr, dtype=I32, device=dev)
+    bounds.index_add_(0, ends_idx, torch.ones_like(ends_idx, dtype=I32))
+    da_by_pos = torch.clamp(torch.cumsum(bounds, 0, dtype=I32), max=num_docs)
+
+    grp_col, prev_col, cross_col = grp_tab
+    dp = torch.clamp(dictpos, 0, nd - 1)
+    key1 = torch.where(pad, -1, grp_col[dp])
+    bwt = torch.where(pad, 0, prev_col[dp])
+    crossv = torch.where(pad, 0, cross_col[dp])
+    return key1, key2, ssa, suf_len, bwt, da_by_pos, crossv
+
+
+def _sort_rows(ops):
+    """Stable sort of the row operands by (key1, key2): key1 in [-1, nd),
+    key2 in [0, mp), so ((key1+1) << 32) | key2 is an exact int64 key and
+    pads (key1 = -1) sort first."""
+    key1, key2 = ops[0], ops[1]
+    key = ((key1.to(I64) + 1) << 32) | key2.to(I64)
+    perm = torch.sort(key, stable=True).indices
+    return tuple(op[perm] for op in ops)
+
+
+def _analyze_sorted(sorted_ops, slt_table, nr: int, w: int, num_docs: int,
+                    min_match_len: int, num_distinct: int,
+                    max_total_freq: int, max_doc_freq: int,
+                    size_cap: int | None):
+    """Post-sort: per-row LCP from the PFP tables, then the interval
+    analysis. Returns (res, counts) with counts = [emit, cand, BWT runs]."""
+    key1s, key2s, ssas, sufs, bwts, da, cross = sorted_ops
+    dev = key1s.device
+    same_grp = torch.zeros(nr, dtype=torch.bool, device=dev)
+    same_grp[1:] = key1s[1:] == key1s[:-1]
+    prev_key2 = torch.cat([key2s[:1], key2s[:-1]])
+    within = sufs - w + _rmq_query(slt_table,
+                                   torch.minimum(prev_key2, key2s) + 1,
+                                   torch.maximum(prev_key2, key2s))
+    lcp = torch.where(same_grp, within, cross)
+    lcp = torch.where(key1s < 0, 0, lcp).to(I32)
+    lcp[0] = 0
+    da = torch.where(key1s < 0, num_docs, da).to(I32)
+    bwt8 = bwts.to(torch.uint8)
+
+    res = ops_intervals.analyze_intervals(
+        lcp, da, bwt8, nr, min_match_len, num_distinct, max_total_freq,
+        max_doc_freq, size_cap=size_cap)
+    res["sa"] = ssas
+    res["da"] = da
+    res["lcp"] = lcp
+    res["bwt"] = bwt8
+    real = key1s >= 0
+    change = (bwts[1:] != bwts[:-1]) & real[1:] & real[:-1]
+    nruns = change.sum(dtype=I32) + 1
+    counts = torch.stack([res["emit"].sum(dtype=I32),
+                          res["cand"].sum(dtype=I32), nruns])
+    return res, counts
+
+
+def _expand_and_analyze(parse, d_starts, cumcnt, m: int, total_rows: int,
+                        n_text: int, isaP, grp_of_pos, d, slt_table,
+                        grp_cross, doc_ends, nr: int, nd: int, w: int,
+                        num_docs: int, min_match_len: int, num_distinct: int,
+                        max_total_freq: int, max_doc_freq: int,
+                        size_cap: int | None = None):
+    """Expand (occurrence, offset) rows, sort into SA order, compute LCP
+    and run the interval analysis."""
+    grp_tab = _grp_tab(d, grp_of_pos, grp_cross, nd)
+    ops = _expand_operands(parse, d_starts, cumcnt, m, total_rows, n_text,
+                           isaP, grp_tab, doc_ends, nr, nd, w, num_docs)
+    return _analyze_sorted(_sort_rows(ops), slt_table, nr, w, num_docs,
+                           min_match_len, num_distinct, max_total_freq,
+                           max_doc_freq, size_cap)
+
+
+def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
+             min_match_len: int, num_distinct: int, max_total_freq: int,
+             max_doc_freq: int, size_cap: int | None = None,
+             probe_words: int = 2, phase=None):
+    """Full PFP expansion + interval scan on pfp.ext's device; returns
+    (res, counts, nr). `phase(name)` is called after each stage."""
+    phase = phase or _noop_phase
+    h = _host_prep(pfp, doc_ends)
+    d, lcpD, isaD, grp_of_pos, grp_cross = _dict_index(
+        pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"], h["npz"],
+        h["total_real"], h["nd"], h["ne"], h["w"], h["lvl_cap"],
+        h["lvl_static"], h["seed_thr"], h["lcp_thr"],
+        probe_words=probe_words)
+    phase("dict_index")
+    isaP, slt_table = _parse_side(h["parse"], h["cumC"], h["d_starts"],
+                                  lcpD, isaD, h["mp"])
+    phase("parse_side")
+    res, counts = _expand_and_analyze(
+        h["parse"], h["d_starts"], h["cumcnt"], h["m"], h["total_rows"],
+        h["n_text"], isaP, grp_of_pos, d, slt_table, grp_cross,
+        h["doc_ends"], h["nr"], h["nd"], h["w"], num_docs, min_match_len,
+        num_distinct, max_total_freq, max_doc_freq, size_cap)
+    phase("expand_sort_analyze")
+    return res, counts, h["nr"]
+
+
+def scan_collection_pfp(text_np: np.ndarray, doc_ends: np.ndarray,
+                        num_docs: int, min_match_len: int, num_distinct: int,
+                        max_total_freq: int, max_doc_freq: int,
+                        device: torch.device, w: int = 10, mod: int = 100,
+                        size_cap: int | None = None, phase=None):
+    """Parse + scan one collection on `device`; returns (res, counts, nr)."""
+    phase = phase or _noop_phase
+    pfp = build_pfp(text_np, device, w=w, mod=mod)
+    phase("build_pfp")
+    return pfp_scan(pfp, doc_ends, num_docs, min_match_len, num_distinct,
+                    max_total_freq, max_doc_freq, size_cap=size_cap,
+                    phase=phase)

@@ -1,0 +1,167 @@
+"""ops/pfp port against mumemto_tpu.ops.pfp, stage by stage.
+
+One parse (the JAX package's build_pfp) is carried into the port with
+convert.from_jax_pfp, and each stage's outputs are compared. Tolerance:
+exact equality for every integer table, with one exception the JAX code
+documents: the depth-capped dictionary SA orders suffixes that share more
+than 2^lvl_cap characters in an implementation-defined way, so isaD is
+compared through the final rank row and lcpD only at tie-block boundaries.
+Everything downstream of those ties (groups, s_lcp_T, the row stream and
+the interval analysis) is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mumemto_tpu.ops import pfp as jax_pfp
+from mumemto_tpu.ops import suffix as jax_suffix
+from mumemto_tpu_torch import convert
+from mumemto_tpu_torch.ops import pfp as t_pfp
+from conftest import build, mutated_collection, rand_seq
+from test_torch_suffix import with_n
+
+CPU = torch.device("cpu")
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _eq(a, b):
+    return np.array_equal(_np(a), _np(b))
+
+
+def _collection(rng, variant):
+    rep = rand_seq(rng, 50)
+    docs = mutated_collection(rng, 4, base_len=600, insert_rep=rep)
+    return build(with_n(docs, rng) if variant == "with_n" else docs)
+
+
+@pytest.fixture(params=["acgt", "with_n"])
+def staged(request, rng):
+    """Both packages' state after each stage, for one collection."""
+    rb = _collection(rng, request.param)
+    pj = jax_pfp.build_pfp(rb.text, w=10, mod=100)
+    pt = convert.from_jax_pfp(pj, CPU)
+    hj = jax_pfp._host_prep(pj, rb.doc_ends, rb.num_docs)
+    ht = t_pfp._host_prep(pt, rb.doc_ends)
+    return request.param, rb, pj, pt, hj, ht
+
+
+def test_build_pfp_fields(rng):
+    for variant in ("acgt", "with_n"):
+        rb = _collection(rng, variant)
+        pj = jax_pfp.build_pfp(rb.text, w=10, mod=100)
+        pt = t_pfp.build_pfp(rb.text, CPU, w=10, mod=100)
+        for f in ("w", "n_text", "m", "num_phrases", "d_len", "alpha"):
+            assert getattr(pt, f) == getattr(pj, f), f
+        for f in ("ext", "parse", "phrase_st", "phrase_ln"):
+            assert _eq(getattr(pt, f), getattr(pj, f)), f
+        assert (ord("N") in pt.alpha) == (variant == "with_n")
+
+
+def _dict_index_both(hj, ht, pj, pt):
+    dj = jax_pfp._dict_index(
+        pj.ext, hj["phrase_st"], hj["phrase_ln"], hj["d_starts"], hj["npz"],
+        hj["total_real"], hj["nd"], hj["ne"], hj["w"], hj["lvl_cap"],
+        hj["lvl_static"], hj["seed_thr"], hj["lcp_thr"])
+    dt = t_pfp._dict_index(
+        pt.ext, ht["phrase_st"], ht["phrase_ln"], ht["d_starts"], ht["npz"],
+        ht["total_real"], ht["nd"], ht["ne"], ht["w"], ht["lvl_cap"],
+        ht["lvl_static"], ht["seed_thr"], ht["lcp_thr"])
+    return dj, dt
+
+
+def test_host_prep_and_dict_index(staged):
+    variant, _rb, pj, pt, hj, ht = staged
+    for key in ("nd", "nr", "mp", "w", "lvl_cap", "lvl_static", "seed_thr",
+                "lcp_thr", "ne"):
+        assert ht[key] == hj[key], key
+    for key in ("phrase_st", "phrase_ln", "d_starts", "parse", "cumC",
+                "cumcnt", "doc_ends"):
+        assert _eq(ht[key], hj[key]), key
+    assert (hj["seed_thr"] is None) == (variant == "with_n")
+
+    (d_j, lcp_j, isa_j, gp_j, gc_j), (d_t, lcp_t, isa_t, gp_t, gc_t) = \
+        _dict_index_both(hj, ht, pj, pt)
+    # exact: the dictionary string and the group tables
+    assert _eq(d_t, d_j)
+    assert _eq(gp_t, gp_j)
+    assert _eq(gc_t, gc_j)
+    # tie-invariant: isaD through the final rank row, lcpD at tie-block
+    # boundaries (see the module docstring)
+    nd = hj["nd"]
+    _sa, hist, _l = jax_suffix._suffix_array_impl(
+        jnp.asarray(d_j), nd, packed_init=True, max_lvl=hj["lvl_cap"],
+        alpha_thresholds=hj["seed_thr"])
+    last = np.asarray(hist)[-1]
+    sa_j = np.argsort(np.asarray(isa_j))
+    sa_t = np.argsort(isa_t.numpy())
+    assert (last[sa_t] == last[sa_j]).all()
+    boundary = np.ones(nd, bool)
+    boundary[1:] = last[sa_j][1:] != last[sa_j][:-1]
+    assert (lcp_t.numpy()[boundary] == np.asarray(lcp_j)[boundary]).all()
+
+
+def test_parse_side(staged):
+    _variant, _rb, pj, pt, hj, ht = staged
+    dj, dt = _dict_index_both(hj, ht, pj, pt)
+    isaP_j, tab_j = jax_pfp._parse_side(hj["parse"], hj["cumC"],
+                                        hj["d_starts"], dj[1], dj[2],
+                                        hj["mp"], hj["nd"])
+    # each port stage on its own upstream outputs: isaP and the s_lcp_T
+    # range-min table are exact despite the dictionary's tie order
+    isaP_t, tab_t = t_pfp._parse_side(ht["parse"], ht["cumC"],
+                                      ht["d_starts"], dt[1], dt[2],
+                                      ht["mp"])
+    assert _eq(isaP_t, isaP_j)
+    assert len(tab_t) == len(tab_j)
+    for a, b in zip(tab_t, tab_j):
+        assert _eq(a, b)
+
+
+def test_expand_and_analyze(staged):
+    _variant, rb, pj, pt, hj, ht = staged
+    dj, dt = _dict_index_both(hj, ht, pj, pt)
+    isaP_j, tab_j = jax_pfp._parse_side(hj["parse"], hj["cumC"],
+                                        hj["d_starts"], dj[1], dj[2],
+                                        hj["mp"], hj["nd"])
+    isaP_t, tab_t = t_pfp._parse_side(ht["parse"], ht["cumC"],
+                                      ht["d_starts"], dt[1], dt[2],
+                                      ht["mp"])
+    n = rb.num_docs
+    cap = 1 << max(n.bit_length(), 2)
+    for k in (n, 2):
+        res_j, counts_j = jax_pfp._expand_and_analyze(
+            hj["parse"], hj["d_starts"], hj["cumcnt"], hj["m"],
+            hj["total_rows"], hj["n_text"], isaP_j, dj[3], dj[0], tab_j,
+            dj[4], hj["doc_ends"], hj["nr"], hj["nd"], hj["w"], n,
+            hj["lvl_cap"], jnp.int32(20), jnp.int32(k), jnp.int32(n), 1,
+            cap, False)
+        res_t, counts_t = t_pfp._expand_and_analyze(
+            ht["parse"], ht["d_starts"], ht["cumcnt"], ht["m"],
+            ht["total_rows"], ht["n_text"], isaP_t, dt[3], dt[0], tab_t,
+            dt[4], ht["doc_ends"], ht["nr"], ht["nd"], ht["w"], n, 20, k,
+            n, 1, cap)
+        assert _eq(counts_t, counts_j)
+        assert int(counts_t[0]) > 0
+        for key in ("cand", "emit", "s", "e", "L", "prev_same", "da", "lcp",
+                    "bwt", "sa"):
+            assert _eq(res_t[key], res_j[key]), key
+
+
+def test_rmq_query_matches_and_guards(rng):
+    v = rng.integers(0, 1000, 500).astype(np.int32)
+    lo = rng.integers(0, 500, 300).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, 200, 300), 499).astype(np.int32)
+    tab_t = t_pfp.ops_intervals._sparse_min_table(torch.from_numpy(v))
+    got = t_pfp._rmq_query(tab_t, torch.from_numpy(lo), torch.from_numpy(hi))
+    want = np.array([v[a:b + 1].min() for a, b in zip(lo, hi)])
+    assert (got.numpy() == want).all()
+    big = [torch.zeros(1, dtype=torch.int32).expand(1 << 27)] * 16
+    with pytest.raises(ValueError, match="overflow"):
+        t_pfp._rmq_query(big, torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32))
