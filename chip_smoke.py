@@ -5,18 +5,31 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. the card, the toolkit and the software versions;
-  2. build the CUDA kernel from the sources in this checkout;
-  3. the KR break-mask kernel against its plain PyTorch version on the card
+  2. the toolchain probe: `python -m mumemto_tpu_torch.kernels.probe` in a
+     subprocess under a timeout, then the add_one kernel against its plain
+     version (exactly equal), with CUDA-event timings;
+  3. build every CUDA kernel from the sources in this checkout, one nvcc
+     per source, all started together;
+  4. the KR break-mask kernel against its plain PyTorch version on the card
      (mask and count exactly equal), with CUDA-event timings;
-  4. the main path end to end on the bench input (bench.synth_collection,
+  5. the main path end to end on the bench input (bench.synth_collection,
      8 docs, 0.1% SNP, revcomp, strict multi-MUMs) at 8 and 32 Mbp: stage
      times, Mbp/s, peak device memory, and the match count against a live
      run of native/baseline_cpu;
-  5. .mums bytes on the card against the port's CPU path (1 Mbp) and
-     against mumemto_tpu.oracle.naive (tiny collections, with and without
-     N bases).
-The line before the last is the kernels' JSON record, the last line is
-{"ok": true, "device": {...}}. Everything is also written to
+  6. multi-MEMs on the same input: -f 3 at 8 and 32 Mbp (windowed scan,
+     global prev-same-doc chain) and -f 0 -F 0 at 8 Mbp (uncapped scan),
+     each against a live baseline_cpu run with the same -f/-F;
+  7. 128 docs of 62.5 kbp, strict MUMs: the size cap is 256, so the scan
+     takes the probe-guarded walk; against a live baseline_cpu run;
+  8. output bytes on the card against the port's CPU path at 1 Mbp (.mums,
+     .mems with -f 3, .bumbl with -b, .thresh/.thresh_rev with -M,
+     .athresh with -M -n) and against mumemto_tpu.oracle.naive on tiny
+     collections (.mums with and without N bases, .mems for five k/f/F
+     settings, the -M threshold arrays).
+Every path of phases 5-7 is driven with the kernels' launch counts set to
+0 just before it and read just after; each must have launched the KR
+kernel. The line before the last is the kernels' JSON record, the last
+line is {"ok": true, "device": {...}}. Everything is also written to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
 
@@ -32,6 +45,8 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KR_SOURCE = "mumemto_tpu_torch/kernels/csrc/kr_mask.cu"
 KR_REPLACES = "mumemto_tpu/ops/pallas_kernels.py:103"
+PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
+PROBE_REPLACES = "tools/mosaic_probe.py:25"
 N_DOCS = 8
 EXPECT_8MBP = 6759  # bench tier match count (README.md, BASELINE.md)
 
@@ -78,19 +93,19 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bench_rb(mbp: float, seed: int = 0):
+def _bench_rb(mbp: float, seed: int = 0, n_docs: int = N_DOCS):
     """bench.py's collection and RefBuilder at `mbp` Mbp."""
     import numpy as np
     import bench
     from mumemto_tpu.refbuilder import RefBuilder, revcomp
-    docs = bench.synth_collection(mbp, N_DOCS, seed=seed, snp_rate=0.001)
+    docs = bench.synth_collection(mbp, n_docs, seed=seed, snp_rate=0.001)
     pieces, seq_lengths = [], []
     dollar = np.frombuffer(b"$", dtype=np.uint8)
     for fwd in docs:
         pieces += [fwd, dollar, revcomp(fwd), dollar]
         seq_lengths.append(2 * (fwd.size + 1))
     text = np.concatenate(pieces)
-    return RefBuilder(text=text, seq_lengths=seq_lengths, num_docs=N_DOCS,
+    return RefBuilder(text=text, seq_lengths=seq_lengths, num_docs=n_docs,
                       use_revcomp=True, input_files=[], multifasta_names=[],
                       multifasta_lengths=[])
 
@@ -127,12 +142,67 @@ def phase_card(torch, report):
         f"nvcc {nvcc} ({ver}); triton {tri}")
 
 
-def phase_build(report):
-    from mumemto_tpu_torch.kernels import kr_mask
+def phase_probe(torch, report):
+    """The toolchain probe's entry point, then its kernel against the plain
+    version."""
+    from mumemto_tpu_torch.kernels import probe
     t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "mumemto_tpu_torch.kernels.probe", "300"],
+        cwd=ROOT, capture_output=True, text=True, timeout=360)
+    probe_s = time.perf_counter() - t0
+    log(f"[probe] rc={run.returncode} in {probe_s:.1f}s: "
+        f"{run.stdout.strip()}")
+    if run.returncode != 0 or "CUDA_PROBE_OK" not in run.stdout:
+        raise AssertionError(f"toolchain probe failed: {run.stdout} "
+                             f"{run.stderr[-2000:]}")
+    # the probe's own path, in this process: its launches are counted
+    probe.launches = 0
+    name = probe.check()
+    launches = probe.launches
+    if launches != 1:
+        raise AssertionError(f"probe.check launched add_one {launches} times")
+    dev = torch.device("cuda")
+    max_err = 0
+    for x in (torch.arange(8 * 128, dtype=torch.int32).reshape(8, 128),
+              torch.tensor([2**31 - 1, -(2**31), -1, 0], dtype=torch.int32),
+              torch.randint(-2**31, 2**31 - 1, (1 << 20,),
+                            dtype=torch.int32)):
+        xc = x.to(dev)
+        got = probe.add_one(xc)
+        torch.cuda.synchronize()
+        err = int((got != probe.add_one_plain(xc)).sum())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"add_one kernel != plain on shape "
+                                 f"{tuple(x.shape)}: {err} mismatches")
+    tile = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
+    ms = _event_ms(torch, lambda: probe.add_one(tile), 200)
+    plain_ms = _event_ms(torch, lambda: probe.add_one_plain(tile), 200)
+    ms2 = _event_ms(torch, lambda: probe.add_one(tile), 200)
+    report["probe"] = {"rc": run.returncode, "wall_s": probe_s,
+                       "stdout": run.stdout.strip(), "device": name,
+                       "launches": launches, "max_abs_err": max_err,
+                       "ms": min(ms, ms2), "ms_runs": [ms, ms2],
+                       "plain_ms": plain_ms, "shape": [8, 128]}
+    log(f"[probe] add_one == plain; (8, 128) kernel {ms:.5f} / {ms2:.5f} ms, "
+        f"plain {plain_ms:.5f} ms")
+
+
+def phase_build(report):
+    """Every kernel source of the port, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mumemto_tpu_torch.kernels import build, kr_mask, probe
+    names = sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build.build, names))
     kr_mask._lib()
+    probe._lib()
     report["build_s"] = time.perf_counter() - t0
-    log(f"[build] kr_mask built and loaded in {report['build_s']:.2f}s")
+    report["kernel_sources"] = names
+    log(f"[build] {', '.join(names)} built and loaded in "
+        f"{report['build_s']:.2f}s")
 
 
 def phase_kernel(torch, report):
@@ -200,73 +270,147 @@ def phase_kernel(torch, report):
     report["kernel_timings"] = timings
 
 
-def phase_end_to_end(torch, report):
+def _drive(torch, label, rb, opts, mbp):
+    """One path end to end on the card: a cold and a warm find_matches with
+    the kernels' launch counts set to 0 just before and read just after,
+    then a live native/baseline_cpu run with the same options. The match
+    count must equal the baseline's and be above 0."""
     import bench
-    from mumemto_tpu import options
     from mumemto_tpu_torch import engine
-    from mumemto_tpu_torch.kernels import kr_mask
+    from mumemto_tpu_torch.kernels import kr_mask, probe
+    kr_mask.launches = probe.launches = 0
+    t0 = time.perf_counter()
+    cold = engine.find_matches(rb, opts, device="cuda")
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer(torch)
+    t0 = time.perf_counter()
+    res = engine.find_matches(rb, opts, device="cuda", phase=timer)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"kr_break_mask": kr_mask.launches, "add_one": probe.launches}
+    if launches["kr_break_mask"] < 2:
+        raise AssertionError(f"{label}: KR kernel launched "
+                             f"{launches['kr_break_mask']} times in two runs")
+    if res.output_bytes() != cold.output_bytes():
+        raise AssertionError(f"{label}: two runs disagree")
+    cpu = bench.run_cpu_baseline(rb.text, rb.seq_lengths, opts, mbp, reps=1)
+    if cpu is None:
+        raise AssertionError("native/baseline_cpu did not build or run")
+    base_mbp_s, base_matches = cpu
+    entry = {"label": label, "mbp": mbp, "num_docs": rb.num_docs,
+             "text_chars": int(rb.text.size),
+             "f": opts.max_doc_freq, "F": opts.max_total_freq,
+             "k": opts.num_distinct, "matches": res.num_matches,
+             "baseline_matches": base_matches,
+             "wall_s": wall, "cold_wall_s": cold_s,
+             "mbp_per_s": mbp / wall, "stages_s": timer.stages,
+             "baseline_s": mbp / base_mbp_s,
+             "baseline_mbp_per_s": base_mbp_s,
+             "peak_alloc_bytes": peak, "launches": launches}
+    log(f"[{label}] {json.dumps(entry)}")
+    if res.num_matches != base_matches or res.num_matches == 0:
+        raise AssertionError(f"{label}: {res.num_matches} matches, "
+                             f"baseline_cpu {base_matches}")
+    return entry
 
-    kr_mask.launches = 0  # count only the main path's launches from here
+
+def phase_end_to_end(torch, report):
+    """Strict multi-MUMs at 8 and 32 Mbp (windowed scan, cap 16)."""
+    from mumemto_tpu import options
     report["e2e"] = {}
     for mbp in (8, 32):
-        rb = _bench_rb(mbp)
-        opts = options.normalize(N_DOCS, quiet=True)
-        before = kr_mask.launches
-        t0 = time.perf_counter()
-        cold = engine.find_matches(rb, opts, device="cuda")
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        timer = StageTimer(torch)
-        t0 = time.perf_counter()
-        res = engine.find_matches(rb, opts, device="cuda", phase=timer)
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        runs = kr_mask.launches - before
-        if runs < 2:
-            raise AssertionError(f"KR kernel launched {runs} times in two "
-                                 f"{mbp} Mbp runs")
-        if res.output_bytes() != cold.output_bytes():
-            raise AssertionError(f"{mbp} Mbp: two runs disagree")
-        cpu = bench.run_cpu_baseline(rb.text, rb.seq_lengths, opts, mbp,
-                                     reps=1)
-        if cpu is None:
-            raise AssertionError("native/baseline_cpu did not build or run")
-        base_mbp_s, base_matches = cpu
-        entry = {"mbp": mbp, "text_chars": int(rb.text.size),
-                 "matches": res.num_matches,
-                 "baseline_matches": base_matches,
-                 "wall_s": wall, "cold_wall_s": cold_s,
-                 "mbp_per_s": mbp / wall, "stages_s": timer.stages,
-                 "baseline_s": mbp / base_mbp_s,
-                 "baseline_mbp_per_s": base_mbp_s,
-                 "peak_alloc_bytes": peak, "kr_launches": runs}
+        entry = _drive(torch, f"e2e {mbp} Mbp", _bench_rb(mbp),
+                       options.normalize(N_DOCS, quiet=True), mbp)
         report["e2e"][f"{mbp}mbp"] = entry
-        log(f"[e2e] {mbp} Mbp: {json.dumps(entry)}")
-        if res.num_matches != base_matches:
-            raise AssertionError(f"{mbp} Mbp: {res.num_matches} matches, "
-                                 f"baseline_cpu {base_matches}")
-        if mbp == 8 and res.num_matches != EXPECT_8MBP:
-            raise AssertionError(f"8 Mbp: {res.num_matches} matches, "
+        if mbp == 8 and entry["matches"] != EXPECT_8MBP:
+            raise AssertionError(f"8 Mbp: {entry['matches']} matches, "
                                  f"expected {EXPECT_8MBP}")
-    report["main_path_launches"] = kr_mask.launches
+
+
+def phase_mem(torch, report):
+    """Multi-MEMs: -f 3 (cap 32, windowed with the global prev-same-doc
+    chain) at 8 and 32 Mbp, -f 0 -F 0 (uncapped) at 8 Mbp."""
+    from mumemto_tpu import options
+    report["mem"] = {}
+    for f, mbp in ((3, 8), (0, 8), (3, 32)):
+        opts = options.normalize(N_DOCS, rare_freq=f, max_mem_freq=0,
+                                 quiet=True)
+        report["mem"][f"f{f} {mbp}mbp"] = _drive(
+            torch, f"mem -f {f} -F 0 {mbp} Mbp", _bench_rb(mbp), opts, mbp)
+
+
+def phase_walk(torch, report):
+    """128 docs of 62.5 kbp, strict MUMs: cap 256, the probe-guarded walk."""
+    from mumemto_tpu import options
+    from mumemto_tpu_torch import engine
+    rb = _bench_rb(8, n_docs=128)
+    opts = options.normalize(rb.num_docs, quiet=True)
+    if engine.interval_size_cap(opts, rb.num_docs) != 256:
+        raise AssertionError("the 128-doc run does not take the walk")
+    report["walk"] = _drive(torch, "walk 128 docs 8 Mbp", rb, opts, 8)
+
+
+def _written(engine, rb, opts, device, tmp, tag):
+    """{extension: bytes} of the files write_outputs makes for one run."""
+    engine.write_outputs(engine.find_matches(rb, opts, device=device), rb,
+                         os.path.join(tmp, tag))
+    out = {}
+    for name in os.listdir(tmp):
+        if name.startswith(tag + "."):
+            with open(os.path.join(tmp, name), "rb") as fh:
+                out[name[len(tag):]] = fh.read()
+    return out
+
+
+def _tiny_mem_docs(seed: int):
+    """3 mutated copies of a 150 bp base with a 60 bp repeat planted 1-3
+    times in each: multi-MEMs exist for every k/f/F setting."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = acgt[rng.integers(0, 4, 150)]
+    rep = acgt[rng.integers(0, 4, 60)]
+    docs = []
+    for _ in range(3):
+        d = base.copy()
+        pos = rng.integers(0, d.size, int(rng.integers(1, 8)))
+        d[pos] = acgt[rng.integers(0, 4, pos.size)]
+        for _ in range(int(rng.integers(1, 4))):
+            cut = int(rng.integers(0, d.size))
+            d = np.concatenate([d[:cut], rep, d[cut:]])
+        docs.append(d)
+    return docs
 
 
 def phase_bytes(torch, report):
+    import tempfile
     import numpy as np
     from mumemto_tpu import options, refbuilder
     from mumemto_tpu.oracle import naive
     from mumemto_tpu_torch import engine
 
     rb = _bench_rb(1, seed=1)
-    opts = options.normalize(N_DOCS, quiet=True)
-    gpu = engine.find_matches(rb, opts, device="cuda").output_bytes()
-    t0 = time.perf_counter()
-    cpu = engine.find_matches(rb, opts, device="cpu").output_bytes()
-    log(f"[bytes] 1 Mbp: cuda {len(gpu)} B, cpu {len(cpu)} B "
-        f"(cpu path {time.perf_counter() - t0:.1f}s)")
-    if gpu != cpu or not gpu:
-        raise AssertionError("1 Mbp .mums bytes differ between cuda and cpu")
+    same = {}
+    for label, kw, exts in (
+            ("mums", {}, {".mums"}),
+            ("-f 3", {"rare_freq": 3}, {".mems"}),
+            ("-b", {"binary": True}, {".bumbl"}),
+            ("-M", {"merge": True}, {".mums", ".thresh", ".thresh_rev"}),
+            ("-M -n", {"merge": True, "anchor_merge": True},
+             {".mums", ".athresh"})):
+        opts = options.normalize(N_DOCS, quiet=True, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            gpu = _written(engine, rb, opts, "cuda", tmp, "cuda")
+            t0 = time.perf_counter()
+            cpu = _written(engine, rb, opts, "cpu", tmp, "cpu")
+            cpu_s = time.perf_counter() - t0
+        sizes = {ext: len(b) for ext, b in sorted(gpu.items())}
+        log(f"[bytes] 1 Mbp {label}: cuda {sizes} (cpu path {cpu_s:.1f}s)")
+        if gpu != cpu or set(gpu) != exts or not all(gpu.values()):
+            raise AssertionError(f"1 Mbp {label}: cuda files != cpu files")
+        same[label] = sizes
 
     import bench
     rng = np.random.default_rng(3)
@@ -288,7 +432,30 @@ def phase_bytes(torch, report):
                 raise AssertionError(f"tiny {label} k={k}: cuda .mums != "
                                      "oracle.naive")
             checked.append(f"{label} k={k}")
-    report["bytes"] = {"1mbp_cuda_eq_cpu": True, "oracle": checked}
+
+    tiny = refbuilder.build_from_sequences([[d] for d in _tiny_mem_docs(4)])
+    for k, f, F in ((0, 2, 0), (0, 3, 0), (2, 2, 0), (0, 0, 0), (0, 2, -1)):
+        topts = options.normalize(tiny.num_docs, num_distinct_docs=k,
+                                  rare_freq=f, max_mem_freq=F, quiet=True)
+        got = engine.find_matches(tiny, topts, device="cuda").output_bytes()
+        want = naive.oracle_output(tiny, topts)
+        log(f"[bytes] tiny .mems k={k} f={f} F={F}: {len(want)} oracle bytes")
+        if got != want or (F >= 0 and not want):
+            raise AssertionError(f"tiny k={k} f={f} F={F}: cuda .mems != "
+                                 "oracle.naive")
+        checked.append(f".mems k={k} f={f} F={F}")
+    topts = options.normalize(tiny.num_docs, merge=True, quiet=True)
+    got = engine.find_matches(tiny, topts, device="cuda")
+    finder = naive.run_finder(tiny, topts)
+    fwd, rev = engine.thresh_arrays(got, tiny.seq_lengths[0] // 2)
+    fo, ro = finder.thresh_arrays()
+    if not ((got.candidate_thresh == np.asarray(finder.candidate_thresh)
+             ).all() and np.array_equal(fwd, fo) and np.array_equal(rev, ro)
+            and fwd.any()):
+        raise AssertionError("tiny -M: cuda threshold arrays != oracle.naive")
+    log(f"[bytes] tiny -M: thresholds == oracle ({fwd.size} slots)")
+    checked.append("-M thresholds")
+    report["bytes"] = {"1mbp_cuda_eq_cpu": same, "oracle": checked}
 
 
 def main() -> int:
@@ -305,20 +472,32 @@ def main() -> int:
     report = {}
     t_all = time.perf_counter()
     phase_card(torch, report)
+    phase_probe(torch, report)
     phase_build(report)
     phase_kernel(torch, report)
     phase_end_to_end(torch, report)
+    phase_mem(torch, report)
+    phase_walk(torch, report)
     phase_bytes(torch, report)
     if "jax" in sys.modules:
         raise AssertionError("chip_smoke imported jax")
     report["total_s"] = time.perf_counter() - t_all
 
     t8 = report["kernel_timings"]["8mbp"]
+    paths = [*report["e2e"].values(), *report["mem"].values(),
+             report["walk"]]
+    report["path_launches"] = {p["label"]: p["launches"] for p in paths}
+    pr = report["probe"]
     kernels = {"kernels": [{
         "name": "kr_break_mask", "route": "cuda", "source": KR_SOURCE,
-        "replaces": KR_REPLACES, "launches": report["main_path_launches"],
+        "replaces": KR_REPLACES,
+        "launches": sum(p["launches"]["kr_break_mask"] for p in paths),
         "max_abs_err": report["kernel_max_abs_err"], "ms": t8["ms"],
-        "plain_ms": t8["plain_ms"]}]}
+        "plain_ms": t8["plain_ms"]}, {
+        "name": "add_one", "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": PROBE_REPLACES, "launches": pr["launches"],
+        "max_abs_err": pr["max_abs_err"], "ms": pr["ms"],
+        "plain_ms": pr["plain_ms"]}]}
     device = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}

@@ -3,9 +3,10 @@
     python -m mumemto_tpu_torch a.fa b.fa ... -o out [--device cuda]
 
 Parses the same build flags as mumemto_tpu/cli.py (src/pfp_mum.cpp:255-313
-in the reference) plus --device, and writes PREFIX.lengths and
-PREFIX.mums. Flags and subcommands whose code paths are not ported yet
-fail with a "not yet ported" error instead of being ignored.
+in the reference) plus --device, and writes PREFIX.lengths and PREFIX.mums
+(.mems with -f != 1, .bumbl with -b), plus .thresh/.thresh_rev with -M or
+.athresh with -M -n. Flags and subcommands whose code paths are not ported
+yet fail with a "not yet ported" error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -81,11 +82,6 @@ def read_filelist(path: str) -> list:
 def _unported_flags(args) -> list:
     """The given flags whose code paths the port does not have yet."""
     checks = [
-        (args.rare_freq != 1, "-f/--per-seq-freq other than 1 (MEM mode)"),
-        (args.max_mem_freq != 0, "-F/--max-total-freq"),
-        (args.merge, "-M/--merge"),
-        (args.anchor_merge, "-n/--anchor"),
-        (args.binary, "-b/--binary"),
         (args.only_parse, "-P/--only-parse"),
         (bool(args.parse_prefix), "-p/--from-parse"),
         (args.arrays_out, "-A/--arrays-out"),
@@ -130,7 +126,8 @@ def build_main(argv) -> int:
     opts = options.normalize(
         rb.num_docs, min_match_len=args.min_match_len,
         num_distinct_docs=args.num_distinct_docs, rare_freq=args.rare_freq,
-        max_mem_freq=args.max_mem_freq, use_revcomp=args.use_rcomp)
+        max_mem_freq=args.max_mem_freq, use_revcomp=args.use_rcomp,
+        merge=args.merge, anchor_merge=args.anchor_merge, binary=args.binary)
     t0 = time.time()
     results = engine.find_matches(rb, opts, device=device, pfp_w=args.pfp_w,
                                   pfp_mod=args.hash_mod)

@@ -1,7 +1,9 @@
-"""Carry a parsed collection from the JAX package into the port.
+"""Carry a parsed collection or a scan result from the JAX package into
+the port.
 
-The system has no weights; its state is the parsed collection. Feeding one
-parse to both packages lets the tests compare them stage by stage.
+The system has no weights; its state is the parsed collection and the
+scan's row arrays. Feeding one parse or one scan to both packages lets the
+tests compare them stage by stage.
 """
 
 from __future__ import annotations
@@ -10,6 +12,14 @@ import numpy as np
 import torch
 
 from mumemto_tpu_torch.ops.pfp import PFPData
+
+
+def from_jax_res(res: dict, device) -> dict:
+    """The port's scan-result dict for a JAX one (analyze_intervals output
+    plus sa/da/lcp/bwt, any arrays numpy can read), as tensors on
+    `device`."""
+    return {key: torch.from_numpy(np.array(val)).to(device)
+            for key, val in res.items()}
 
 
 def from_jax_pfp(pfp, device) -> PFPData:

@@ -1,28 +1,34 @@
-"""End-to-end match finding: collection text -> .mums output, on one device.
+"""End-to-end match finding: collection text -> .mums/.mems outputs, on one
+device.
 
-Port of the MUM path of mumemto_tpu/engine.py with the PFP backend: the
-scan (ops/pfp.py) and the compaction (ops/pipeline.py) run on the device
-given; the host receives only the compacted windows and assembles the
-.mums lines. Strict (-k 0) and partial (-k) multi-MUMs are ported; MEM
-mode, merge metadata (-M/-Mn), binary output (-b), the direct backend
-(-g), parse files (-P/-p) and array checkpoints (-A/-a) are not yet.
+Port of mumemto_tpu/engine.py with the PFP backend: the scan (ops/pfp.py)
+and the compactions (ops/pipeline.py) run on the device given; the host
+receives only the compacted windows and assembles the output lines.
+Strict and partial (-k) multi-MUMs, multi-MEMs (-f, -F), merge metadata
+(-M, -M -n) and binary output (-b) are ported; the direct backend (-g),
+parse files (-P/-p) and array checkpoints (-A/-a) are not yet.
 
 The host-side emitters below (MatchResults, _doc_metadata, _emit_mums,
-_join_ragged and the MUM branch of write_outputs) are copies of the
-numpy code in mumemto_tpu/engine.py, which cannot be imported here because
-that module loads jax. Keep the two in step: the .mums bytes must be equal.
+_MemRecords, _join_ragged, _emit_mems, _merge_thresholds, thresh_arrays
+and write_outputs) are copies of the numpy code in mumemto_tpu/engine.py,
+which cannot be imported here because that module loads jax. Keep the two
+in step: the output bytes must be equal.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence as _Sequence
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from mumemto_tpu import formats
 from mumemto_tpu.options import MatchOptions
 from mumemto_tpu_torch.device import resolve
 from mumemto_tpu_torch.ops import pfp as ops_pfp
 from mumemto_tpu_torch.ops import pipeline as ops_pipeline
+
+MAX_THRESH = 65535  # mem_finder.hpp:299
 
 
 def interval_size_cap(opts: MatchOptions, num_docs: int) -> int | None:
@@ -102,51 +108,75 @@ def _doc_metadata(rb, opts):
     return doc_offsets, doc_lens
 
 
-def _check_ported(opts: MatchOptions) -> None:
-    if not opts.mum_mode:
-        raise NotImplementedError(
-            "MEM mode (-f != 1) is not yet ported to mumemto_tpu_torch "
-            "(ROADMAP.md, queue 1 item 7)")
-    if opts.merge or opts.anchor_merge:
-        raise NotImplementedError(
-            "merge metadata (-M/-Mn) is not yet ported to mumemto_tpu_torch "
-            "(ROADMAP.md, queue 1 item 8)")
-
-
 def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
                  pfp_mod: int = 100, phase=None) -> MatchResults:
-    """Multi-MUMs of one collection with the PFP backend on `device`.
-    `phase(name)` is called after each stage (build_pfp, dict_index,
-    parse_side, expand_sort_analyze, compact, emit)."""
-    _check_ported(opts)
+    """Multi-MUMs or multi-MEMs of one collection with the PFP backend on
+    `device`, plus the merge metadata when opts.merge. `phase(name)` is
+    called after each stage (build_pfp, dict_index, parse_side,
+    expand_sort_analyze, compact, emit, merge)."""
     dev = resolve(device)
     size_cap = interval_size_cap(opts, rb.num_docs)
     res, counts, n = ops_pfp.scan_collection_pfp(
         rb.text, rb.doc_ends, rb.num_docs, opts.min_match_len,
         opts.num_distinct, opts.max_total_freq, opts.max_doc_freq, dev,
-        w=pfp_w, mod=pfp_mod, size_cap=size_cap, phase=phase)
-    n_emit, _n_cand, n_runs = (int(x) for x in counts.cpu())
+        w=pfp_w, mod=pfp_mod, size_cap=size_cap, need_ctx=opts.merge,
+        phase=phase)
+    n_emit, n_cand, n_runs = (int(x) for x in counts.cpu())
 
     results = MatchResults(opts=opts, num_docs=rb.num_docs)
     results.bwt_runs = n_runs
     results.text_length = int(rb.text.size)
     doc_offsets, doc_lens = _doc_metadata(rb, opts)
 
-    W = rb.num_docs  # distinct docs => window size <= N
     M = ops_pipeline.bucket(n_emit)
-    s, e, L, w_sa, w_da = (t.cpu().numpy() for t in
-                           ops_pipeline.compact_windows_mum(
-                               res, n, M, W, rb.num_docs))
-    if phase is not None:
-        phase("compact")
     m = n_emit
-    valid = (s[:m, None] + np.arange(W)) < e[:m, None]
-    _emit_mums(results, s[:m], e[:m], L[:m], w_sa[:m],
-               w_da[:m].astype(np.int32), valid, opts,
-               doc_offsets, doc_lens, rb.num_docs)
+    if opts.mum_mode:
+        W = rb.num_docs  # distinct docs => window size <= N
+        s, e, L, w_sa, w_da = _to_host(ops_pipeline.compact_windows_mum(
+            res, n, M, W, rb.num_docs))
+        if phase is not None:
+            phase("compact")
+        valid = (s[:m, None] + np.arange(W)) < e[:m, None]
+        _emit_mums(results, s[:m], e[:m], L[:m], w_sa[:m],
+                   w_da[:m].astype(np.int32), valid, opts,
+                   doc_offsets, doc_lens, rb.num_docs)
+    else:
+        # the window is as wide as the widest match: one readback of the
+        # match fields before the windows are gathered
+        _, s0, e0, _, _ = ops_pipeline.compact_fields(res, n, M)
+        maxw = int((e0[:m] - s0[:m]).max()) if m else 1
+        W = ops_pipeline.bucket(maxw, lo=8)
+        s, e, L, w_sa, w_da, w_prev = _to_host(
+            ops_pipeline.compact_windows_mem(res, n, M, W, rb.num_docs))
+        if phase is not None:
+            phase("compact")
+        valid = (s[:m, None] + np.arange(W)) < e[:m, None]
+        w_da = w_da.astype(np.int32)
+        # deferred distinct-count (check_doc_range unique >= k,
+        # mem_finder.hpp:265-289)
+        unique = (valid & (w_prev[:m] < s[:m, None])).sum(axis=1)
+        keep = unique >= opts.num_distinct
+        _emit_mems(results, s[:m][keep], e[:m][keep], L[:m][keep],
+                   w_sa[:m][keep], w_da[:m][keep], valid[keep],
+                   opts, doc_offsets, doc_lens)
     if phase is not None:
         phase("emit")
+
+    if opts.merge:
+        Mc = ops_pipeline.bucket(n_cand)
+        has0, sa_first0, prev_ctx, next_ctx = _to_host(
+            ops_pipeline.compact_cand_thresh(res, n, Mc, rb.num_docs))
+        _merge_thresholds(results, has0[:n_cand], sa_first0[:n_cand],
+                          prev_ctx[:n_cand], next_ctx[:n_cand],
+                          doc_offsets, doc_lens)
+        if phase is not None:
+            phase("merge")
     return results
+
+
+def _to_host(tensors) -> list:
+    """numpy copies of device tensors."""
+    return [t.cpu().numpy() for t in tensors]
 
 
 def _emit_mums(results, s, e, L, w_sa, w_da, valid, opts,
@@ -192,19 +222,168 @@ def _emit_mums(results, s, e, L, w_sa, w_da, valid, opts,
         [OFF[keep][:, 0], L[keep]], axis=1) if opts.merge else None
 
 
+class _MemRecords(_Sequence):
+    """Lazy list-like view of (L, positions, docs, strands) per match over
+    flat occurrence arrays; each record materializes on access."""
+
+    def __init__(self, L, tposf, docf, negf, offs):
+        self._L = L
+        self._tposf = tposf
+        self._docf = docf
+        self._negf = negf
+        self._offs = offs
+
+    def __len__(self):
+        return len(self._L)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        o, o2 = self._offs[i], self._offs[i + 1]
+        return (int(self._L[i]), self._tposf[o:o2],
+                self._docf[o:o2].astype(np.int64), ~self._negf[o:o2])
+
+
 def _join_ragged(pieces, starts):
     """Per-row string concatenation of a flat unicode piece array grouped
     by `starts` (reduceat over object strings)."""
     return np.add.reduceat(pieces.astype(object), starts)
 
 
+def _emit_mems(results, s, e, L, w_sa, w_da, valid, opts,
+               doc_offsets, doc_lens):
+    """write_mem semantics (mem_finder.hpp:210-263), incl. the last-element
+    '-' transform quirk (no -1 at :248), vectorized over the compacted
+    (m, W) windows."""
+    m = len(s)
+    if m == 0:
+        results.mem_lines = []
+        results.mem_records = []
+        return
+    num_docs = len(doc_lens)
+    W = valid.shape[1]
+    nv = valid.sum(axis=1).astype(np.int64)
+    docs = np.minimum(w_da, num_docs - 1)
+    pos = w_sa.astype(np.int64) - doc_offsets[docs]
+    dl = doc_lens[docs]
+    if opts.use_revcomp:
+        neg = valid & (pos >= dl)
+    else:
+        neg = np.zeros_like(valid)
+    is_last = np.arange(W)[None, :] == (nv[:, None] - 1)
+    # '-' transform: 2*len - pos - L - 1, except the LAST occurrence of a
+    # match drops the -1 (mem_finder.hpp:248)
+    tpos = np.where(neg, 2 * dl - pos - L[:, None].astype(np.int64)
+                    - 1 + is_last, pos)
+
+    # flat occurrence arrays, row-major (valid is a prefix mask per row;
+    # every emitted interval has >= 2 rows, required by the ragged joins)
+    assert nv.min() > 0, "empty emission window"
+    tposf = tpos[valid]
+    docf = w_da[valid].astype(np.int32)
+    negf = neg[valid]
+    offs = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(nv, out=offs[1:])
+    starts = offs[:-1]
+    # trailing comma after every occurrence except the row's last
+    rowid = np.repeat(np.arange(m), nv)
+    jj = np.arange(offs[-1]) - starts[rowid]
+    sep = np.where(jj == nv[rowid] - 1, "", ",")
+    pos_col = _join_ragged(np.char.add(
+        np.char.mod("%d", tposf), sep), starts)
+    doc_col = _join_ragged(np.char.add(
+        np.char.mod("%d", docf), sep), starts)
+    strand_col = _join_ragged(np.char.add(
+        np.where(negf, "-", "+"), sep), starts)
+    head = np.char.add(np.char.mod("%d", L.astype(np.int64)), "\t")
+    full = (head.astype(object) + pos_col + "\t" + doc_col + "\t"
+            + strand_col + "\n")
+    results.mem_lines = "".join(full.tolist()).encode().splitlines(
+        keepends=True)
+    results.mem_records = _MemRecords(L.astype(np.int64), tposf, docf,
+                                      negf, offs)
+
+
+def _merge_thresholds(results, has0, sa_first0, prev_ctx, next_ctx,
+                      doc_offsets, doc_lens):
+    """candidate_thresh updates (mem_finder.hpp:326-336): for every
+    candidate interval (in pop order), next_best = min(max(LCP[s], LCP[e]),
+    65535) is written at the first-genome offset of the interval's doc-0
+    row. Later writes at the same position win."""
+    dl0 = int(doc_lens[0])
+    thresh = np.zeros(dl0 * 2, dtype=np.uint16)
+    rowpos = sa_first0[has0].astype(np.int64) - doc_offsets[0]
+    nb = np.minimum(np.maximum(prev_ctx[has0], next_ctx[has0]), MAX_THRESH)
+    if rowpos.size:
+        # keep-last-write semantics under duplicate positions
+        rev = np.arange(rowpos.size - 1, -1, -1)
+        uniq_pos, first_in_rev = np.unique(rowpos[rev], return_index=True)
+        thresh[uniq_pos] = nb[rev][first_in_rev]
+    results.candidate_thresh = thresh
+
+
+def thresh_arrays(results: MatchResults, doc_len0: int):
+    """Close-time .thresh/.thresh_rev generation (mem_finder.hpp:116-157),
+    as one flat ragged expansion (each MUM contributes `length` threshold
+    slots + one zero separator slot)."""
+    mp = results.mum_positions
+    order = np.argsort(mp[:, 0], kind="stable")
+    mp = mp[order]
+    pos_a = mp[:, 0]
+    len_a = mp[:, 1]
+    total = int((len_a + 1).sum())
+    fwd = np.zeros(total, dtype=np.uint16)
+    rev = np.zeros(total, dtype=np.uint16)
+    ct = results.candidate_thresh
+    nflat = int(len_a.sum())
+    if nflat == 0:
+        return fwd, rev
+    # every per-row-affine flat quantity q_row + jj is
+    # repeat(q_row - starts, len) + arange: no rowid gathers
+    idx_dt = np.int64 if (nflat >= 2**31 or 2 * doc_len0 >= 2**31
+                          or total >= 2**31) else np.int32
+    starts = (np.cumsum(len_a) - len_a).astype(idx_dt)
+    len_i = len_a.astype(idx_dt)
+    pos_i = pos_a.astype(idx_dt)
+    ar = np.arange(nflat, dtype=idx_dt)
+    revpos = idx_dt(2 * doc_len0) - pos_i - len_i - 1
+    out_starts = np.cumsum(len_i + 1) - (len_i + 1)
+    ct16 = ct if ct.dtype == np.uint16 else ct.astype(np.uint16)
+    fv = ct16[np.repeat(pos_i - starts, len_a) + ar]
+    rv = ct16[np.repeat(revpos - starts, len_a) + ar]
+    rem = np.repeat(len_i + starts, len_a) - ar
+    out = np.repeat((out_starts - starts).astype(idx_dt), len_a) + ar
+    sel = fv < rem
+    fwd[out[sel]] = fv[sel]
+    sel = rv < rem
+    rev[out[sel]] = rv[sel]
+    return fwd, rev
+
+
 def write_outputs(results: MatchResults, rb, prefix: str) -> None:
-    """Write PREFIX.mums (text multi-MUM format, mem_finder.hpp:91-158)."""
+    """Write PREFIX.mums, .mems or .bumbl, plus the merge metadata
+    (.thresh/.thresh_rev, or .athresh with -n), like mem_finder's
+    constructor and close (mem_finder.hpp:91-158)."""
     opts = results.opts
-    _check_ported(opts)
-    if opts.binary:
-        raise NotImplementedError(
-            "binary output (-b) is not yet ported to mumemto_tpu_torch "
-            "(ROADMAP.md, queue 1 item 9)")
-    with open(prefix + ".mums", "wb") as f:
-        f.write(results.output_bytes())
+    if not opts.mum_mode:
+        with open(prefix + ".mems", "wb") as f:
+            f.write(results.output_bytes())
+    elif opts.binary:
+        formats.write_bumbl(prefix + ".bumbl",
+                            results.lengths.astype(np.uint32),
+                            results.offsets,
+                            results.strands > 0,
+                            partial=opts.num_distinct < results.num_docs)
+    else:
+        with open(prefix + ".mums", "wb") as f:
+            f.write(results.output_bytes())
+
+    if opts.anchor_merge:
+        dl0 = int(rb.seq_lengths[0] // (2 if opts.use_revcomp else 1))
+        formats.write_thresh(prefix + ".athresh",
+                             results.candidate_thresh[:dl0])
+    elif opts.merge:
+        dl0 = int(rb.seq_lengths[0] // (2 if opts.use_revcomp else 1))
+        fwd, rev = thresh_arrays(results, dl0)
+        formats.write_thresh(prefix + ".thresh", fwd)
+        formats.write_thresh(prefix + ".thresh_rev", rev)

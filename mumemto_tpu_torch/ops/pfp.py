@@ -11,7 +11,7 @@ for the algorithm):
   4. parse side parse SA + LCP + ISA, s_lcp_T and its range-min table.
   5. expansion  one row per text position, stably sorted by
                 (group id, parse ISA) into SA order; per-row LCP from the
-                PFP tables, then the windowed interval analysis.
+                PFP tables, then the interval analysis.
 
 Pad rows get sort key -1 so they land at the front of the row stream with
 LCP 0 and doc id num_docs. Row arrays are int32 (nr-scale); sort keys and
@@ -494,7 +494,7 @@ def _sort_rows(ops):
 def _analyze_sorted(sorted_ops, slt_table, nr: int, w: int, num_docs: int,
                     min_match_len: int, num_distinct: int,
                     max_total_freq: int, max_doc_freq: int,
-                    size_cap: int | None):
+                    size_cap: int | None, need_ctx: bool = False):
     """Post-sort: per-row LCP from the PFP tables, then the interval
     analysis. Returns (res, counts) with counts = [emit, cand, BWT runs]."""
     key1s, key2s, ssas, sufs, bwts, da, cross = sorted_ops
@@ -513,7 +513,7 @@ def _analyze_sorted(sorted_ops, slt_table, nr: int, w: int, num_docs: int,
 
     res = ops_intervals.analyze_intervals(
         lcp, da, bwt8, nr, min_match_len, num_distinct, max_total_freq,
-        max_doc_freq, size_cap=size_cap)
+        max_doc_freq, size_cap=size_cap, need_ctx=need_ctx)
     res["sa"] = ssas
     res["da"] = da
     res["lcp"] = lcp
@@ -531,7 +531,7 @@ def _expand_and_analyze(parse, d_starts, cumcnt, m: int, total_rows: int,
                         grp_cross, doc_ends, nr: int, nd: int, w: int,
                         num_docs: int, min_match_len: int, num_distinct: int,
                         max_total_freq: int, max_doc_freq: int,
-                        size_cap: int | None = None):
+                        size_cap: int | None = None, need_ctx: bool = False):
     """Expand (occurrence, offset) rows, sort into SA order, compute LCP
     and run the interval analysis."""
     grp_tab = _grp_tab(d, grp_of_pos, grp_cross, nd)
@@ -539,13 +539,13 @@ def _expand_and_analyze(parse, d_starts, cumcnt, m: int, total_rows: int,
                            isaP, grp_tab, doc_ends, nr, nd, w, num_docs)
     return _analyze_sorted(_sort_rows(ops), slt_table, nr, w, num_docs,
                            min_match_len, num_distinct, max_total_freq,
-                           max_doc_freq, size_cap)
+                           max_doc_freq, size_cap, need_ctx)
 
 
 def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
              min_match_len: int, num_distinct: int, max_total_freq: int,
              max_doc_freq: int, size_cap: int | None = None,
-             probe_words: int = 2, phase=None):
+             need_ctx: bool = False, probe_words: int = 2, phase=None):
     """Full PFP expansion + interval scan on pfp.ext's device; returns
     (res, counts, nr). `phase(name)` is called after each stage."""
     phase = phase or _noop_phase
@@ -563,7 +563,7 @@ def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
         h["parse"], h["d_starts"], h["cumcnt"], h["m"], h["total_rows"],
         h["n_text"], isaP, grp_of_pos, d, slt_table, grp_cross,
         h["doc_ends"], h["nr"], h["nd"], h["w"], num_docs, min_match_len,
-        num_distinct, max_total_freq, max_doc_freq, size_cap)
+        num_distinct, max_total_freq, max_doc_freq, size_cap, need_ctx)
     phase("expand_sort_analyze")
     return res, counts, h["nr"]
 
@@ -572,11 +572,13 @@ def scan_collection_pfp(text_np: np.ndarray, doc_ends: np.ndarray,
                         num_docs: int, min_match_len: int, num_distinct: int,
                         max_total_freq: int, max_doc_freq: int,
                         device: torch.device, w: int = 10, mod: int = 100,
-                        size_cap: int | None = None, phase=None):
-    """Parse + scan one collection on `device`; returns (res, counts, nr)."""
+                        size_cap: int | None = None, need_ctx: bool = False,
+                        phase=None):
+    """Parse + scan one collection on `device`; returns (res, counts, nr).
+    need_ctx adds the merge contexts (prev_ctx, next_ctx) to res."""
     phase = phase or _noop_phase
     pfp = build_pfp(text_np, device, w=w, mod=mod)
     phase("build_pfp")
     return pfp_scan(pfp, doc_ends, num_docs, min_match_len, num_distinct,
                     max_total_freq, max_doc_freq, size_cap=size_cap,
-                    phase=phase)
+                    need_ctx=need_ctx, phase=phase)

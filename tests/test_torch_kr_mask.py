@@ -16,6 +16,9 @@ from mumemto_tpu.ops import pallas_kernels as pk
 from mumemto_tpu.ops import pfp as jax_pfp
 from mumemto_tpu_torch.kernels import kr_mask
 
+# several test workers share the machine's cores
+torch.set_num_threads(2)
+
 
 def _ext(rng, ne, n_text, w, alphabet=None):
     """ext layout: [Dollar] + text + [Dollar]*w + zero pad."""

@@ -23,6 +23,9 @@ from mumemto_tpu_torch.ops import pfp as t_pfp
 from conftest import build, mutated_collection, rand_seq
 from test_torch_suffix import with_n
 
+# several test workers share the machine's cores
+torch.set_num_threads(2)
+
 CPU = torch.device("cpu")
 
 

@@ -22,6 +22,9 @@ from mumemto_tpu.ops import suffix as jax_suffix
 from mumemto_tpu_torch.ops import suffix as t_suffix
 from conftest import build, mutated_collection, rand_seq
 
+# several test workers share the machine's cores
+torch.set_num_threads(2)
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))
