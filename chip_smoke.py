@@ -7,7 +7,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. the card, the toolkit and the software versions;
   2. the toolchain probe: `python -m mumemto_tpu_torch.kernels.probe` in a
      subprocess under a timeout, then the add_one kernel against its plain
-     version (exactly equal), with CUDA-event timings;
+     version (exactly equal) on the (8, 128) tile, the int32 edges, 2^26
+     elements, odd lengths and misaligned views, with CUDA-event timings at
+     (8, 128) and 2^26 and the host time of each step of its launch path;
   3. build every CUDA kernel from the sources in this checkout, one nvcc
      per source, all started together;
   4. the KR break-mask kernel against its plain PyTorch version on the card
@@ -21,15 +23,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      each against a live baseline_cpu run with the same -f/-F;
   7. 128 docs of 62.5 kbp, strict MUMs: the size cap is 256, so the scan
      takes the probe-guarded walk; against a live baseline_cpu run;
-  8. output bytes on the card against the port's CPU path at 1 Mbp (.mums,
+  8. the other entry routes on the 8 Mbp input: -g (direct backend; a cold
+     and a warm run against a live baseline_cpu run, its index stages
+     alone), -P then -p, -A then -a; every route's .mums bytes must equal
+     the PFP path's of phase 5;
+  9. output bytes on the card against the port's CPU path at 1 Mbp (.mums,
      .mems with -f 3, .bumbl with -b, .thresh/.thresh_rev with -M,
-     .athresh with -M -n) and against mumemto_tpu.oracle.naive on tiny
-     collections (.mums with and without N bases, .mems for five k/f/F
-     settings, the -M threshold arrays).
-Every path of phases 5-7 is driven with the kernels' launch counts set to
-0 just before it and read just after; each must have launched the KR
-kernel. The line before the last is the kernels' JSON record, the last
-line is {"ok": true, "device": {...}}. Everything is also written to
+     .athresh with -M -n, .sa/.lcp/.bwt with -A, .dict/.parse with -P,
+     -g's .mums and .mems with -f 3) and against mumemto_tpu.oracle.naive
+     on tiny collections (.mums with and without N bases, .mems for five
+     k/f/F settings, the -M threshold arrays).
+Every path of phases 5-8 is driven with the kernels' launch counts set to
+0 just before it and read just after; each PFP path (and -P, -A) must have
+launched the KR kernel, and -g, -p and -a must have launched none. The
+line before the last is the kernels' JSON record, the last line is
+{"ok": true, "device": {...}}. Everything is also written to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
 
@@ -164,29 +172,137 @@ def phase_probe(torch, report):
         raise AssertionError(f"probe.check launched add_one {launches} times")
     dev = torch.device("cuda")
     max_err = 0
-    for x in (torch.arange(8 * 128, dtype=torch.int32).reshape(8, 128),
-              torch.tensor([2**31 - 1, -(2**31), -1, 0], dtype=torch.int32),
-              torch.randint(-2**31, 2**31 - 1, (1 << 20,),
-                            dtype=torch.int32)):
-        xc = x.to(dev)
+    big = torch.randint(-2**31, 2**31 - 1, (1 << 26,), dtype=torch.int32,
+                        device=dev)
+    odd = torch.randint(-2**31, 2**31 - 1, (1000003,), dtype=torch.int32,
+                        device=dev)
+    cases = [("(8, 128)", torch.arange(8 * 128, dtype=torch.int32,
+                                       device=dev).reshape(8, 128)),
+             ("int32 edges", torch.tensor([2**31 - 1, -(2**31), -1, 0],
+                                          dtype=torch.int32, device=dev)),
+             ("2^20", big[:1 << 20]), ("2^26", big),
+             ("odd length 1000003", odd),
+             ("misaligned view x[1:]", odd[1:]),
+             ("misaligned odd x[3:10]", odd[3:10])]
+    cases += [(f"length {k}", odd[:k]) for k in (1, 2, 3, 5, 7)]
+    for label, xc in cases:
         got = probe.add_one(xc)
         torch.cuda.synchronize()
         err = int((got != probe.add_one_plain(xc)).sum())
         max_err = max(max_err, err)
         if err:
-            raise AssertionError(f"add_one kernel != plain on shape "
-                                 f"{tuple(x.shape)}: {err} mismatches")
+            raise AssertionError(f"add_one kernel != plain on {label}: "
+                                 f"{err} mismatches")
+    if odd[1:].data_ptr() % 16 == 0:
+        raise AssertionError("x[1:] is 16-byte aligned: the scalar path "
+                             "was not exercised")
     tile = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
-    ms = _event_ms(torch, lambda: probe.add_one(tile), 200)
-    plain_ms = _event_ms(torch, lambda: probe.add_one_plain(tile), 200)
-    ms2 = _event_ms(torch, lambda: probe.add_one(tile), 200)
+    tile_t = _turns(torch, lambda: probe.add_one(tile),
+                    lambda: probe.add_one_plain(tile), 500, 5)
+    gb = 2 * big.numel() * 4 / 1e9  # bytes read + written per call
+    big_t = _turns(torch, lambda: probe.add_one(big),
+                   lambda: probe.add_one_plain(big), 20, 3)
+    big_t.update(n=big.numel(), gb_per_s=gb / (big_t["ms"] / 1e3),
+                 plain_gb_per_s=gb / (big_t["plain_ms"] / 1e3),
+                 hbm_peak_gb_per_s=3350.0)
     report["probe"] = {"rc": run.returncode, "wall_s": probe_s,
                        "stdout": run.stdout.strip(), "device": name,
                        "launches": launches, "max_abs_err": max_err,
-                       "ms": min(ms, ms2), "ms_runs": [ms, ms2],
-                       "plain_ms": plain_ms, "shape": [8, 128]}
-    log(f"[probe] add_one == plain; (8, 128) kernel {ms:.5f} / {ms2:.5f} ms, "
-        f"plain {plain_ms:.5f} ms")
+                       "cases": [c[0] for c in cases], "shape": [8, 128],
+                       **tile_t, "2^26": big_t,
+                       "host_split_us": _host_split(torch, probe, tile)}
+    log(f"[probe] add_one == plain on {len(cases)} cases; (8, 128) median "
+        f"kernel {tile_t['ms']:.5f} ms, plain {tile_t['plain_ms']:.5f} ms "
+        f"({json.dumps(tile_t)})")
+    log(f"[probe] 2^26 int32: median kernel {big_t['ms']:.4f} ms "
+        f"({big_t['gb_per_s']:.1f} GB/s), plain {big_t['plain_ms']:.4f} ms "
+        f"({big_t['plain_gb_per_s']:.1f} GB/s) of 3350 GB/s HBM peak")
+    log("[probe] host us per call: "
+        + json.dumps(report["probe"]["host_split_us"]))
+
+
+def _turns(torch, kernel, plain, reps: int, rounds: int) -> dict:
+    """CUDA-event ms per call of kernel and plain, timed in turns (kernel,
+    plain, plain, kernel) for `rounds` rounds of `reps` calls each; the
+    medians and every run."""
+    import statistics
+    runs = {"kernel": [], "plain": []}
+    for _ in range(rounds):
+        for name in ("kernel", "plain", "plain", "kernel"):
+            runs[name].append(_event_ms(
+                torch, kernel if name == "kernel" else plain, reps))
+    return {"ms": statistics.median(runs["kernel"]),
+            "plain_ms": statistics.median(runs["plain"]),
+            "ms_runs": runs["kernel"], "plain_ms_runs": runs["plain"]}
+
+
+def _host_split(torch, probe, tile, reps: int = 10000) -> dict:
+    """Host microseconds per call of each step of add_one's launch path on
+    the (8, 128) tile, by time.perf_counter_ns over `reps` calls: the steps
+    the earlier wrapper took on every call (a _lib() lookup, the device
+    guard, a Stream object for the stream handle) and the ones the wrapper
+    takes now, the bare ctypes launch, and the whole wrapper beside x + 1.
+    Steps that launch work synchronize after the loop, outside the clock."""
+    import ctypes
+    from mumemto_tpu_torch.kernels import build
+    dev = tile.device
+    idx = tile.get_device()
+    fn = probe._kernel()
+    out = torch.empty_like(tile)
+    xp, op, n = tile.data_ptr(), out.data_ptr(), tile.numel()
+    stream = build.current_stream(idx)
+    lib = build.load("add_one")
+    lib.add_one_i32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int64, ctypes.c_void_p]
+    lib.add_one_i32.restype = ctypes.c_int
+
+    def old_lib():  # the earlier per-call _lib(): import, load, attribute
+        from mumemto_tpu_torch.kernels import build as b
+        return b.load("add_one")
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    def old_wrapper():  # the earlier add_one after _check, step by step
+        lb = old_lib()
+        with torch.cuda.device(dev):
+            o = torch.empty_like(tile)
+            s = torch.cuda.current_stream(dev).cuda_stream
+            lb.add_one_i32(tile.data_ptr(), o.data_ptr(), tile.numel(), s)
+        return o
+
+    steps = [
+        ("_check", lambda: probe._check(tile)),
+        ("_lib() (earlier, per call)", old_lib),
+        ("torch.cuda.device enter+exit (earlier)", guard),
+        ("torch.empty_like", lambda: torch.empty_like(tile)),
+        ("torch.cuda.current_stream(dev).cuda_stream (earlier)",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("build.current_stream (now)", lambda: build.current_stream(idx)),
+        ("torch.cuda.current_device", torch.cuda.current_device),
+        ("torch._C._cuda_getDevice (now)", torch._C._cuda_getDevice),
+        ("tensor.get_device (now)", tile.get_device),
+        ("2x data_ptr", lambda: (tile.data_ptr(), out.data_ptr())),
+        ("bare ctypes call, prototyped (now)", lambda: fn(xp, op, n, stream)),
+        ("bare ctypes call, CDLL attribute (earlier)",
+         lambda: lib.add_one_i32(xp, op, n, stream)),
+        ("earlier wrapper, rebuilt", lambda: (probe._check(tile),
+                                              old_wrapper())),
+        ("add_one (now)", lambda: probe.add_one(tile)),
+        ("x + 1", lambda: probe.add_one_plain(tile)),
+    ]
+    out_us = {}
+    for name, step in steps:
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            step()
+        t1 = time.perf_counter_ns()
+        torch.cuda.synchronize()
+        out_us[name] = (t1 - t0) / reps / 1e3
+    return out_us
 
 
 def phase_build(report):
@@ -197,8 +313,8 @@ def phase_build(report):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.build, names))
-    kr_mask._lib()
-    probe._lib()
+    kr_mask._kernel()
+    probe._kernel()
     report["build_s"] = time.perf_counter() - t0
     report["kernel_sources"] = names
     log(f"[build] {', '.join(names)} built and loaded in "
@@ -270,37 +386,43 @@ def phase_kernel(torch, report):
     report["kernel_timings"] = timings
 
 
-def _drive(torch, label, rb, opts, mbp):
+def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     """One path end to end on the card: a cold and a warm find_matches with
     the kernels' launch counts set to 0 just before and read just after,
     then a live native/baseline_cpu run with the same options. The match
-    count must equal the baseline's and be above 0."""
+    count must equal the baseline's and be above 0. The PFP backend must
+    have launched the KR kernel in both runs, the direct backend never.
+    Returns (record, warm result)."""
     import bench
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.kernels import kr_mask, probe
     kr_mask.launches = probe.launches = 0
     t0 = time.perf_counter()
-    cold = engine.find_matches(rb, opts, device="cuda")
+    cold = engine.find_matches(rb, opts, device="cuda", backend=backend)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     timer = StageTimer(torch)
     t0 = time.perf_counter()
-    res = engine.find_matches(rb, opts, device="cuda", phase=timer)
+    res = engine.find_matches(rb, opts, device="cuda", phase=timer,
+                              backend=backend)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {"kr_break_mask": kr_mask.launches, "add_one": probe.launches}
-    if launches["kr_break_mask"] < 2:
+    if backend == "pfp" and launches["kr_break_mask"] < 2:
         raise AssertionError(f"{label}: KR kernel launched "
                              f"{launches['kr_break_mask']} times in two runs")
+    if backend == "direct" and any(launches.values()):
+        raise AssertionError(f"{label}: the direct backend launched "
+                             f"kernels: {launches}")
     if res.output_bytes() != cold.output_bytes():
         raise AssertionError(f"{label}: two runs disagree")
     cpu = bench.run_cpu_baseline(rb.text, rb.seq_lengths, opts, mbp, reps=1)
     if cpu is None:
         raise AssertionError("native/baseline_cpu did not build or run")
     base_mbp_s, base_matches = cpu
-    entry = {"label": label, "mbp": mbp, "num_docs": rb.num_docs,
-             "text_chars": int(rb.text.size),
+    entry = {"label": label, "backend": backend, "mbp": mbp,
+             "num_docs": rb.num_docs, "text_chars": int(rb.text.size),
              "f": opts.max_doc_freq, "F": opts.max_total_freq,
              "k": opts.num_distinct, "matches": res.num_matches,
              "baseline_matches": base_matches,
@@ -313,20 +435,24 @@ def _drive(torch, label, rb, opts, mbp):
     if res.num_matches != base_matches or res.num_matches == 0:
         raise AssertionError(f"{label}: {res.num_matches} matches, "
                              f"baseline_cpu {base_matches}")
-    return entry
+    return entry, res
 
 
-def phase_end_to_end(torch, report):
-    """Strict multi-MUMs at 8 and 32 Mbp (windowed scan, cap 16)."""
+def phase_end_to_end(torch, report) -> bytes:
+    """Strict multi-MUMs at 8 and 32 Mbp (windowed scan, cap 16); returns
+    the 8 Mbp .mums bytes."""
     from mumemto_tpu import options
     report["e2e"] = {}
     for mbp in (8, 32):
-        entry = _drive(torch, f"e2e {mbp} Mbp", _bench_rb(mbp),
-                       options.normalize(N_DOCS, quiet=True), mbp)
+        entry, res = _drive(torch, f"e2e {mbp} Mbp", _bench_rb(mbp),
+                            options.normalize(N_DOCS, quiet=True), mbp)
         report["e2e"][f"{mbp}mbp"] = entry
-        if mbp == 8 and entry["matches"] != EXPECT_8MBP:
-            raise AssertionError(f"8 Mbp: {entry['matches']} matches, "
-                                 f"expected {EXPECT_8MBP}")
+        if mbp == 8:
+            if entry["matches"] != EXPECT_8MBP:
+                raise AssertionError(f"8 Mbp: {entry['matches']} matches, "
+                                     f"expected {EXPECT_8MBP}")
+            mums_8mbp = res.output_bytes()
+    return mums_8mbp
 
 
 def phase_mem(torch, report):
@@ -338,7 +464,8 @@ def phase_mem(torch, report):
         opts = options.normalize(N_DOCS, rare_freq=f, max_mem_freq=0,
                                  quiet=True)
         report["mem"][f"f{f} {mbp}mbp"] = _drive(
-            torch, f"mem -f {f} -F 0 {mbp} Mbp", _bench_rb(mbp), opts, mbp)
+            torch, f"mem -f {f} -F 0 {mbp} Mbp", _bench_rb(mbp), opts,
+            mbp)[0]
 
 
 def phase_walk(torch, report):
@@ -349,13 +476,22 @@ def phase_walk(torch, report):
     opts = options.normalize(rb.num_docs, quiet=True)
     if engine.interval_size_cap(opts, rb.num_docs) != 256:
         raise AssertionError("the 128-doc run does not take the walk")
-    report["walk"] = _drive(torch, "walk 128 docs 8 Mbp", rb, opts, 8)
+    report["walk"] = _drive(torch, "walk 128 docs 8 Mbp", rb, opts, 8)[0]
 
 
-def _written(engine, rb, opts, device, tmp, tag):
-    """{extension: bytes} of the files write_outputs makes for one run."""
-    engine.write_outputs(engine.find_matches(rb, opts, device=device), rb,
-                         os.path.join(tmp, tag))
+def _written(engine, rb, opts, device, tmp, tag, backend="pfp",
+             arrays_out=False, parse_only=False):
+    """{extension: bytes} of the files one run writes: find_matches +
+    write_outputs (with the .sa/.lcp/.bwt files when arrays_out), or the
+    .dict/.parse files of write_parse_files when parse_only."""
+    from mumemto_tpu_torch.ops import pfp as ops_pfp
+    prefix = os.path.join(tmp, tag)
+    if parse_only:
+        ops_pfp.write_parse_files(rb, prefix, engine.resolve(device))
+    else:
+        engine.write_outputs(engine.find_matches(
+            rb, opts, device=device, backend=backend,
+            arrays_out_prefix=prefix if arrays_out else None), rb, prefix)
     out = {}
     for name in os.listdir(tmp):
         if name.startswith(tag + "."):
@@ -384,6 +520,128 @@ def _tiny_mem_docs(seed: int):
     return docs
 
 
+def _counted(torch, fn):
+    """(fn(), seconds, launch counts) with the counts set to 0 just before
+    fn and read just after."""
+    from mumemto_tpu_torch.kernels import kr_mask, probe
+    kr_mask.launches = probe.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {"kr_break_mask": kr_mask.launches,
+                                           "add_one": probe.launches}
+
+
+def _direct_index(torch, rb) -> dict:
+    """The -g index stages alone on the padded bench text: doubling rounds
+    and history size, and the PLCP deep-row count against deep_cap."""
+    import numpy as np
+    from mumemto_tpu_torch import engine
+    from mumemto_tpu_torch.ops import pfp as ops_pfp
+    from mumemto_tpu_torch.ops import suffix as ops_suffix
+    n_real = int(rb.text.size)
+    n = engine.pad_size(n_real)
+    text_np = np.zeros(n, np.uint8)
+    text_np[:n_real] = rb.text
+    seed_thr, _ = ops_pfp.seed_thresholds(
+        set(ops_pfp._alphabet(rb.text)) | {0})
+    text = torch.from_numpy(text_np).to(engine.resolve("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sa, hist, num_lvl = ops_suffix._suffix_array_impl(
+        text, n, packed_init=True, alpha_thresholds=seed_thr)
+    torch.cuda.synchronize()
+    sa_s = time.perf_counter() - t0
+    stats = {}
+    ops_suffix._lcp_plcp_impl(sa, hist, text, n, hist.shape[0], seed_thr,
+                              deep_cap=max(n // 4, 1024), num_lvl=num_lvl,
+                              stats=stats)
+    torch.cuda.synchronize()
+    stats.update(n=n, filled_rows=num_lvl, hist_rows=int(hist.shape[0]),
+                 doubling_sorts=num_lvl - 4 + 1,
+                 hist_bytes=int(hist.numel()) * 4, sa_s=sa_s,
+                 lcp_s=time.perf_counter() - t0 - sa_s,
+                 peak_alloc_bytes=torch.cuda.max_memory_allocated())
+    return stats
+
+
+def phase_routes(torch, report, pfp_mums: bytes):
+    """The other single-device entry routes on the 8 Mbp bench input, each
+    against the PFP path's .mums bytes (pfp_mums): -g (the direct backend,
+    against a live baseline_cpu run as well), -P then -p, -A then -a. -P
+    and -A must launch the KR kernel; -g, -p and -a launch no kernel."""
+    import tempfile
+    import numpy as np
+    from mumemto_tpu import formats, options
+    from mumemto_tpu.refbuilder import RefBuilder
+    from mumemto_tpu_torch import engine
+    from mumemto_tpu_torch.ops import pfp as ops_pfp
+    rb = _bench_rb(8)
+    opts = options.normalize(N_DOCS, quiet=True)
+    out = {}
+    entry, res = _drive(torch, "-g 8 Mbp", rb, opts, 8, backend="direct")
+    if entry["matches"] != EXPECT_8MBP or res.output_bytes() != pfp_mums:
+        raise AssertionError("-g 8 Mbp: .mums != the PFP path's")
+    entry["index"] = _direct_index(torch, rb)
+    log(f"[routes] -g index stages: {json.dumps(entry['index'])}")
+    out["-g"] = entry
+    # what -p and -a see: the .lengths metadata, no text
+    rb_meta = RefBuilder(text=None, seq_lengths=rb.seq_lengths,
+                         num_docs=rb.num_docs, use_revcomp=True,
+                         input_files=[], multifasta_names=[],
+                         multifasta_lengths=[])
+    cuda = engine.resolve("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        pre = os.path.join(tmp, "ck")
+        _, s_P, l_P = _counted(
+            torch, lambda: ops_pfp.write_parse_files(rb, pre, cuda))
+        t_p = StageTimer(torch)
+        res_p, s_p, l_p = _counted(torch, lambda: engine.find_matches(
+            rb_meta, opts, device=cuda, parse_prefix=pre, phase=t_p))
+        sizes_P = {ext: os.path.getsize(pre + ext)
+                   for ext in (".dict", ".parse")}
+        t_A = StageTimer(torch)
+        res_A, s_A, l_A = _counted(torch, lambda: engine.find_matches(
+            rb, opts, device=cuda, arrays_out_prefix=pre, phase=t_A))
+        sizes_A = {ext: os.path.getsize(pre + ext)
+                   for ext in (".sa", ".lcp", ".bwt")}
+
+        def replay():
+            sa = formats.read_5byte(pre + ".sa").astype(np.int64)
+            lcp = formats.read_5byte(pre + ".lcp").astype(np.int64)
+            bwt = formats.read_rl_bwt(pre + ".bwt")
+            return engine.find_matches_from_arrays(
+                sa, lcp, bwt, rb_meta.doc_array(sa), rb_meta, opts,
+                device=cuda)
+        res_a, s_a, l_a = _counted(torch, replay)
+    rows = int(rb.text.size)
+    out["-P -p"] = {"-P_s": s_P, "-P_launches": l_P, "-p_s": s_p,
+                    "-p_stages_s": t_p.stages, "-p_launches": l_p,
+                    "sizes": sizes_P,
+                    "matches": res_p.num_matches,
+                    "text_length": res_p.text_length}
+    out["-A -a"] = {"-A_s": s_A, "-A_stages_s": t_A.stages,
+                    "-A_launches": l_A, "-a_s": s_a,
+                    "-a_launches": l_a, "sizes": sizes_A, "real_rows": rows,
+                    "matches": res_a.num_matches}
+    log(f"[routes] {json.dumps(out['-P -p'])}")
+    log(f"[routes] {json.dumps(out['-A -a'])}")
+    if l_P["kr_break_mask"] < 1 or l_A["kr_break_mask"] < 1:
+        raise AssertionError(f"-P/-A did not launch the KR kernel: {l_P} "
+                             f"{l_A}")
+    if any(l_p.values()) or any(l_a.values()):
+        raise AssertionError(f"-p/-a launched kernels: {l_p} {l_a}")
+    for label, r in (("-p", res_p), ("-A", res_A), ("-a", res_a)):
+        if r.output_bytes() != pfp_mums:
+            raise AssertionError(f"{label} 8 Mbp: .mums != the PFP path's")
+    if res_p.text_length != sum(rb.seq_lengths):
+        raise AssertionError("-p: text_length != the .lengths total")
+    if sizes_A[".sa"] != 5 * rows or sizes_A[".lcp"] != 5 * rows:
+        raise AssertionError(f"-A: .sa/.lcp sizes {sizes_A} != 5 x {rows}")
+    report["routes"] = out
+
+
 def phase_bytes(torch, report):
     import tempfile
     import numpy as np
@@ -393,18 +651,24 @@ def phase_bytes(torch, report):
 
     rb = _bench_rb(1, seed=1)
     same = {}
-    for label, kw, exts in (
-            ("mums", {}, {".mums"}),
-            ("-f 3", {"rare_freq": 3}, {".mems"}),
-            ("-b", {"binary": True}, {".bumbl"}),
-            ("-M", {"merge": True}, {".mums", ".thresh", ".thresh_rev"}),
-            ("-M -n", {"merge": True, "anchor_merge": True},
-             {".mums", ".athresh"})):
+    for label, kw, run_kw, exts in (
+            ("mums", {}, {}, {".mums"}),
+            ("-f 3", {"rare_freq": 3}, {}, {".mems"}),
+            ("-b", {"binary": True}, {}, {".bumbl"}),
+            ("-M", {"merge": True}, {}, {".mums", ".thresh", ".thresh_rev"}),
+            ("-M -n", {"merge": True, "anchor_merge": True}, {},
+             {".mums", ".athresh"}),
+            ("-A", {}, {"arrays_out": True},
+             {".mums", ".sa", ".lcp", ".bwt"}),
+            ("-P", {}, {"parse_only": True}, {".dict", ".parse"}),
+            ("-g", {}, {"backend": "direct"}, {".mums"}),
+            ("-g -f 3", {"rare_freq": 3}, {"backend": "direct"},
+             {".mems"})):
         opts = options.normalize(N_DOCS, quiet=True, **kw)
         with tempfile.TemporaryDirectory() as tmp:
-            gpu = _written(engine, rb, opts, "cuda", tmp, "cuda")
+            gpu = _written(engine, rb, opts, "cuda", tmp, "cuda", **run_kw)
             t0 = time.perf_counter()
-            cpu = _written(engine, rb, opts, "cpu", tmp, "cpu")
+            cpu = _written(engine, rb, opts, "cpu", tmp, "cpu", **run_kw)
             cpu_s = time.perf_counter() - t0
         sizes = {ext: len(b) for ext, b in sorted(gpu.items())}
         log(f"[bytes] 1 Mbp {label}: cuda {sizes} (cpu path {cpu_s:.1f}s)")
@@ -475,9 +739,10 @@ def main() -> int:
     phase_probe(torch, report)
     phase_build(report)
     phase_kernel(torch, report)
-    phase_end_to_end(torch, report)
+    mums_8mbp = phase_end_to_end(torch, report)
     phase_mem(torch, report)
     phase_walk(torch, report)
+    phase_routes(torch, report, mums_8mbp)
     phase_bytes(torch, report)
     if "jax" in sys.modules:
         raise AssertionError("chip_smoke imported jax")
@@ -485,13 +750,17 @@ def main() -> int:
 
     t8 = report["kernel_timings"]["8mbp"]
     paths = [*report["e2e"].values(), *report["mem"].values(),
-             report["walk"]]
+             report["walk"], report["routes"]["-g"]]
     report["path_launches"] = {p["label"]: p["launches"] for p in paths}
+    for label in ("-P", "-p", "-A", "-a"):
+        report["path_launches"][label] = report["routes"][
+            "-P -p" if label in ("-P", "-p") else "-A -a"][label + "_launches"]
     pr = report["probe"]
     kernels = {"kernels": [{
         "name": "kr_break_mask", "route": "cuda", "source": KR_SOURCE,
         "replaces": KR_REPLACES,
-        "launches": sum(p["launches"]["kr_break_mask"] for p in paths),
+        "launches": sum(v["kr_break_mask"]
+                        for v in report["path_launches"].values()),
         "max_abs_err": report["kernel_max_abs_err"], "ms": t8["ms"],
         "plain_ms": t8["plain_ms"]}, {
         "name": "add_one", "route": "cuda", "source": PROBE_SOURCE,

@@ -5,8 +5,10 @@
 Parses the same build flags as mumemto_tpu/cli.py (src/pfp_mum.cpp:255-313
 in the reference) plus --device, and writes PREFIX.lengths and PREFIX.mums
 (.mems with -f != 1, .bumbl with -b), plus .thresh/.thresh_rev with -M or
-.athresh with -M -n. Flags and subcommands whose code paths are not ported
-yet fail with a "not yet ported" error instead of being ignored.
+.athresh with -M -n, and .sa/.lcp/.bwt with -A. -P writes .dict/.parse
+and stops; -p resumes from them, -a replays .sa/.lcp/.bwt files, -g runs
+the direct backend. --seq-shards and the subcommands are not ported yet
+and fail with a "not yet ported" error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+import numpy as np
 
 VERSION = "1.4.0"
 
@@ -81,19 +85,20 @@ def read_filelist(path: str) -> list:
 
 def _unported_flags(args) -> list:
     """The given flags whose code paths the port does not have yet."""
-    checks = [
-        (args.only_parse, "-P/--only-parse"),
-        (bool(args.parse_prefix), "-p/--from-parse"),
-        (args.arrays_out, "-A/--arrays-out"),
-        (bool(args.arrays_in), "-a/--arrays-in"),
-        (args.use_gsacak, "-g/--use-gsacak"),
-        (args.seq_shards != 0, "--seq-shards"),
-    ]
-    return [name for bad, name in checks if bad]
+    return ["--seq-shards"] if args.seq_shards != 0 else []
+
+
+def _options(args, rb):
+    from mumemto_tpu import options
+    return options.normalize(
+        rb.num_docs, min_match_len=args.min_match_len,
+        num_distinct_docs=args.num_distinct_docs, rare_freq=args.rare_freq,
+        max_mem_freq=args.max_mem_freq, use_revcomp=args.use_rcomp,
+        merge=args.merge, anchor_merge=args.anchor_merge, binary=args.binary)
 
 
 def build_main(argv) -> int:
-    from mumemto_tpu import options, refbuilder
+    from mumemto_tpu import formats, refbuilder
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.device import resolve
 
@@ -111,11 +116,39 @@ def build_main(argv) -> int:
         files = read_filelist(args.input_list)
     else:
         files = args.files
-    if not files:
+    if not files and not args.arrays_in and not args.parse_prefix:
         print("Error: Need to provide a file-list or files as positional args "
               "for processing.", file=sys.stderr)
         return 1
     device = resolve(args.device)
+
+    if args.arrays_in:
+        # -a: replay PREFIX.sa/.lcp/.bwt (+ .lengths), pfp_mum.cpp:97-110
+        rb = refbuilder.build_from_lengths(args.arrays_in,
+                                           use_revcomp=args.use_rcomp)
+        sa = formats.read_5byte(args.arrays_in + ".sa").astype(np.int64)
+        lcp = formats.read_5byte(args.arrays_in + ".lcp").astype(np.int64)
+        bwt = formats.read_rl_bwt(args.arrays_in + ".bwt")
+        results = engine.find_matches_from_arrays(
+            sa, lcp, bwt, rb.doc_array(sa), rb, _options(args, rb),
+            device=device)
+        engine.write_outputs(results, rb, args.output_prefix)
+        print(f"[build_main] {results.num_matches} matches found",
+              file=sys.stderr)
+        return 0
+
+    if args.parse_prefix:
+        # -p: resume from PREFIX.dict/.parse (+ .lengths),
+        # pfp_mum.cpp:122-123, ref_builder.cpp:140-169
+        rb = refbuilder.build_from_lengths(args.parse_prefix,
+                                           use_revcomp=args.use_rcomp)
+        results = engine.find_matches(rb, _options(args, rb), device=device,
+                                      pfp_w=args.pfp_w,
+                                      parse_prefix=args.parse_prefix)
+        engine.write_outputs(results, rb, args.output_prefix)
+        print(f"[build_main] {results.num_matches} matches found",
+              file=sys.stderr)
+        return 0
 
     t_start = time.time()
     rb = refbuilder.build_from_files(files, use_revcomp=args.use_rcomp)
@@ -123,14 +156,19 @@ def build_main(argv) -> int:
     print(f"[build_main] reference built ({time.time() - t_start:.2f}s, "
           f"{rb.text.size / 1e6:.1f}M chars, {rb.num_docs} docs)",
           file=sys.stderr)
-    opts = options.normalize(
-        rb.num_docs, min_match_len=args.min_match_len,
-        num_distinct_docs=args.num_distinct_docs, rare_freq=args.rare_freq,
-        max_mem_freq=args.max_mem_freq, use_revcomp=args.use_rcomp,
-        merge=args.merge, anchor_merge=args.anchor_merge, binary=args.binary)
+    opts = _options(args, rb)
+    if args.only_parse:
+        from mumemto_tpu_torch.ops import pfp as ops_pfp
+        ops_pfp.write_parse_files(rb, args.output_prefix, device,
+                                  w=args.pfp_w, mod=args.hash_mod)
+        return 0
     t0 = time.time()
-    results = engine.find_matches(rb, opts, device=device, pfp_w=args.pfp_w,
-                                  pfp_mod=args.hash_mod)
+    # -A rides the same scan: the index rows are written out of the run
+    # that also emits the matches (pfp_lcp_mum.hpp:323-378)
+    results = engine.find_matches(
+        rb, opts, device=device, pfp_w=args.pfp_w, pfp_mod=args.hash_mod,
+        backend="direct" if args.use_gsacak else "pfp",
+        arrays_out_prefix=args.output_prefix if args.arrays_out else None)
     print(f"[build_main] match scan finished on {device} "
           f"({time.time() - t0:.2f}s)", file=sys.stderr)
     engine.write_outputs(results, rb, args.output_prefix)

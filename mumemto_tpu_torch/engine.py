@@ -1,18 +1,19 @@
 """End-to-end match finding: collection text -> .mums/.mems outputs, on one
 device.
 
-Port of mumemto_tpu/engine.py with the PFP backend: the scan (ops/pfp.py)
-and the compactions (ops/pipeline.py) run on the device given; the host
-receives only the compacted windows and assembles the output lines.
-Strict and partial (-k) multi-MUMs, multi-MEMs (-f, -F), merge metadata
-(-M, -M -n) and binary output (-b) are ported; the direct backend (-g),
-parse files (-P/-p) and array checkpoints (-A/-a) are not yet.
+Port of mumemto_tpu/engine.py: the scan (the PFP backend in ops/pfp.py,
+or the direct -g backend, ops/pipeline.scan_collection) and the
+compactions (ops/pipeline.py) run on the device given; the host receives
+only the compacted windows and assembles the output lines. A scan can
+also resume from .dict/.parse files (-p) and write its SA/LCP/BWT rows as
+.sa/.lcp/.bwt files (-A); find_matches_from_arrays replays those (-a).
 
-The host-side emitters below (MatchResults, _doc_metadata, _emit_mums,
-_MemRecords, _join_ragged, _emit_mems, _merge_thresholds, thresh_arrays
-and write_outputs) are copies of the numpy code in mumemto_tpu/engine.py,
-which cannot be imported here because that module loads jax. Keep the two
-in step: the output bytes must be equal.
+The host-side code below (MatchResults, _doc_metadata, _emit_mums,
+_MemRecords, _join_ragged, _emit_mems, _merge_thresholds, thresh_arrays,
+write_outputs and the host half of find_matches_from_arrays) is a copy of
+the numpy code in mumemto_tpu/engine.py, which cannot be imported here
+because that module loads jax. Keep the two in step: the output bytes
+must be equal.
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ from collections.abc import Sequence as _Sequence
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from mumemto_tpu import formats
 from mumemto_tpu.options import MatchOptions
 from mumemto_tpu_torch.device import resolve
+from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import pfp as ops_pfp
 from mumemto_tpu_torch.ops import pipeline as ops_pipeline
+from mumemto_tpu_torch.ops import suffix as ops_suffix
 
 MAX_THRESH = 65535  # mem_finder.hpp:299
 
@@ -44,6 +48,16 @@ def interval_size_cap(opts: MatchOptions, num_docs: int) -> int | None:
         return None
     cap = min(caps)
     return 1 << max(cap.bit_length(), 2)
+
+
+def pad_size(n: int, min_pad: int = 4) -> int:
+    """n + min_pad bucketed up to a 0.75 or 1.0 multiple of a power of two,
+    at least 4096: the zero-padded text length of the direct backend."""
+    target = max(n + min_pad, 4096)
+    p = 1 << (target - 1).bit_length()
+    if p // 2 + p // 4 >= target:
+        return p // 2 + p // 4
+    return p
 
 
 @dataclass
@@ -109,23 +123,63 @@ def _doc_metadata(rb, opts):
 
 
 def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
-                 pfp_mod: int = 100, phase=None) -> MatchResults:
-    """Multi-MUMs or multi-MEMs of one collection with the PFP backend on
-    `device`, plus the merge metadata when opts.merge. `phase(name)` is
-    called after each stage (build_pfp, dict_index, parse_side,
-    expand_sort_analyze, compact, emit, merge)."""
+                 pfp_mod: int = 100, phase=None, backend: str = "pfp",
+                 parse_prefix: str | None = None,
+                 arrays_out_prefix: str | None = None) -> MatchResults:
+    """Multi-MUMs or multi-MEMs of one collection on `device`, plus the
+    merge metadata when opts.merge.
+
+    backend: "pfp" (the reference's PFP path) or "direct" (full-text
+    prefix doubling, the reference's -g path). parse_prefix: resume from
+    PREFIX.dict/.parse instead of rb.text (-p, pfp_mum.cpp:122-123).
+    arrays_out_prefix: also write .sa/.lcp/.bwt files from the same scan
+    (-A). `phase(name)` is called after each stage (PFP: build_pfp or
+    read_parse, dict_index, parse_side, expand_sort_analyze; direct:
+    suffix_array, lcp, analyze; then arrays_out, compact, emit, merge)."""
     dev = resolve(device)
     size_cap = interval_size_cap(opts, rb.num_docs)
-    res, counts, n = ops_pfp.scan_collection_pfp(
-        rb.text, rb.doc_ends, rb.num_docs, opts.min_match_len,
-        opts.num_distinct, opts.max_total_freq, opts.max_doc_freq, dev,
-        w=pfp_w, mod=pfp_mod, size_cap=size_cap, need_ctx=opts.merge,
-        phase=phase)
+    if parse_prefix:
+        pfp = ops_pfp.pfp_from_parse_files(parse_prefix, dev, w=pfp_w)
+        if phase is not None:
+            phase("read_parse")
+        res, counts, n = ops_pfp.pfp_scan(
+            pfp, rb.doc_ends, rb.num_docs, opts.min_match_len,
+            opts.num_distinct, opts.max_total_freq, opts.max_doc_freq,
+            size_cap=size_cap, need_ctx=opts.merge, phase=phase)
+    elif backend == "pfp":
+        res, counts, n = ops_pfp.scan_collection_pfp(
+            rb.text, rb.doc_ends, rb.num_docs, opts.min_match_len,
+            opts.num_distinct, opts.max_total_freq, opts.max_doc_freq, dev,
+            w=pfp_w, mod=pfp_mod, size_cap=size_cap, need_ctx=opts.merge,
+            phase=phase)
+    elif backend == "direct":
+        n_real = int(rb.text.size)
+        n = pad_size(n_real)
+        text = np.zeros(n, dtype=np.uint8)
+        text[:n_real] = rb.text
+        # the PFP dict stage's alphabet levers; the pad byte 0 is part of
+        # the padded text's alphabet
+        seed_thr, lcp_thr = ops_pfp.seed_thresholds(
+            set(ops_pfp._alphabet(rb.text)) | {0})
+        res, counts = ops_pipeline.scan_collection(
+            torch.from_numpy(text).to(dev),
+            torch.from_numpy(rb.doc_ends).to(dev), n, rb.num_docs,
+            opts.min_match_len, opts.num_distinct, opts.max_total_freq,
+            opts.max_doc_freq, size_cap=size_cap, need_ctx=opts.merge,
+            alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr, phase=phase)
+    else:
+        raise ValueError(f"unknown backend {backend!r}: use pfp or direct")
     n_emit, n_cand, n_runs = (int(x) for x in counts.cpu())
+    if arrays_out_prefix:
+        _write_arrays_from_res(res, arrays_out_prefix, rb.num_docs)
+        if phase is not None:
+            phase("arrays_out")
 
     results = MatchResults(opts=opts, num_docs=rb.num_docs)
     results.bwt_runs = n_runs
-    results.text_length = int(rb.text.size)
+    # a -p resume has no text
+    results.text_length = (int(rb.text.size) if rb.text is not None
+                           else sum(rb.seq_lengths))
     doc_offsets, doc_lens = _doc_metadata(rb, opts)
 
     M = ops_pipeline.bucket(n_emit)
@@ -177,6 +231,103 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
 def _to_host(tensors) -> list:
     """numpy copies of device tensors."""
     return [t.cpu().numpy() for t in tensors]
+
+
+def _write_arrays_from_res(res, prefix: str, num_docs: int) -> None:
+    """-A checkpoint files from the scan's row arrays: PREFIX.sa and .lcp
+    (5-byte ints) and .bwt (run-length), real doc rows only (pads and the
+    trailing-terminator row carry doc id num_docs). The rows are selected
+    on the device, so only the real rows are read back."""
+    real = res["da"] < num_docs
+    sa, lcp, bwt = _to_host([res["sa"][real], res["lcp"][real],
+                             res["bwt"][real]])
+    formats.write_5byte(prefix + ".sa", sa.astype(np.uint64))
+    formats.write_5byte(prefix + ".lcp", lcp.astype(np.uint64))
+    formats.write_rl_bwt(prefix + ".bwt", bwt)
+
+
+def compute_arrays(rb, device="cuda", padded_n: int | None = None):
+    """The direct index of rb's zero-padded text (padded to padded_n, or
+    pad_size) on `device`: numpy (sa, lcp, bwt, da)."""
+    n_real = int(rb.text.size)
+    n = padded_n or pad_size(n_real)
+    text = np.zeros(n, dtype=np.uint8)
+    text[:n_real] = rb.text
+    dev = resolve(device)
+    sa, lcp, bwt = ops_suffix.suffix_lcp_arrays(torch.from_numpy(text).to(dev))
+    da = ops_suffix.doc_array(sa, torch.from_numpy(rb.doc_ends).to(dev),
+                              rb.num_docs)
+    return tuple(_to_host([sa, lcp, bwt, da]))
+
+
+def find_matches_from_arrays(sa, lcp, bwt, da, rb, opts: MatchOptions,
+                             device="cuda") -> MatchResults:
+    """Matches of precomputed index arrays (numpy: the -a replay of
+    .sa/.lcp/.bwt files, or compute_arrays): the interval analysis on
+    `device`, then the host selection and emitters of find_matches."""
+    dev = resolve(device)
+    n = int(sa.size)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+    res = ops_intervals.analyze_intervals(
+        up(lcp, torch.int32), up(da, torch.int32), up(bwt, torch.uint8), n,
+        opts.min_match_len, opts.num_distinct, opts.max_total_freq,
+        opts.max_doc_freq, size_cap=interval_size_cap(opts, rb.num_docs),
+        need_ctx=opts.merge)
+    cand, emit, s_all, e_all, prev_same = _to_host(
+        [res["cand"], res["emit"], res["s"], res["e"], res["prev_same"]])
+    lcp = np.asarray(lcp)
+    sa = np.asarray(sa)
+    da = np.asarray(da)
+
+    def ordered(idx):
+        return idx[np.lexsort((-lcp[idx], e_all[idx]))]
+
+    emit_idx = ordered(np.flatnonzero(emit))
+    results = MatchResults(opts=opts, num_docs=rb.num_docs)
+    doc_offsets, doc_lens = _doc_metadata(rb, opts)
+
+    s = s_all[emit_idx]
+    e = e_all[emit_idx]
+    L = lcp[emit_idx]
+    if opts.mum_mode:
+        W = rb.num_docs
+    else:
+        W = int((e - s).max()) if emit_idx.size else 1
+    cols = s[:, None] + np.arange(W)
+    valid = cols < e[:, None]
+    colc = np.minimum(cols, n - 1)
+    w_sa = sa[colc]
+    w_da = da[colc]
+    if opts.max_doc_freq != 1 and emit_idx.size:
+        w_prev = prev_same[colc]
+        unique = (valid & (w_prev < s[:, None])).sum(axis=1)
+        keep = unique >= opts.num_distinct
+        s, e, L = s[keep], e[keep], L[keep]
+        w_sa, w_da, valid = w_sa[keep], w_da[keep], valid[keep]
+
+    if opts.mum_mode:
+        _emit_mums(results, s, e, L, w_sa, w_da, valid, opts,
+                   doc_offsets, doc_lens, rb.num_docs)
+    else:
+        _emit_mems(results, s, e, L, w_sa, w_da, valid, opts,
+                   doc_offsets, doc_lens)
+
+    if opts.merge:
+        prev_ctx, next_ctx = _to_host([res["prev_ctx"], res["next_ctx"]])
+        cand_idx = ordered(np.flatnonzero(cand))
+        sc = s_all[cand_idx]
+        ec = e_all[cand_idx]
+        colsc = np.minimum(sc[:, None] + np.arange(rb.num_docs), n - 1)
+        validc = colsc < ec[:, None]
+        is0 = validc & (da[colsc] == 0)
+        has0 = is0.any(axis=1)
+        first0 = np.argmax(is0, axis=1)
+        sa_first0 = sa[np.minimum(sc + first0, n - 1)]
+        _merge_thresholds(results, has0, sa_first0, prev_ctx[cand_idx],
+                          next_ctx[cand_idx], doc_offsets, doc_lens)
+    return results
 
 
 def _emit_mums(results, s, e, L, w_sa, w_da, valid, opts,

@@ -5,6 +5,10 @@ compiled by `nvcc` into `build/lib<name>.so` beside this file, at first use
 and again whenever the source is newer than the library, and loaded with
 ctypes. Nothing is built when this module is imported, and nothing here
 runs without a CUDA toolkit.
+
+A wrapper binds each C entry point once (`function`) and launches it with
+`launch`, which appends the raw handle of PyTorch's current stream on the
+tensor's device (`current_stream`).
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import ctypes
 import os
 import shutil
 import subprocess
+
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -60,3 +66,34 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, restype, argtypes):
+    """A prototyped ctypes function object for `symbol` in lib<name>.so
+    (built and loaded first when needed). Pointers and the stream must be
+    declared c_void_p: an undeclared argument is passed as a 32-bit int."""
+    return ctypes.CFUNCTYPE(restype, *argtypes)((symbol, load(name)))
+
+
+def current_stream(device_index: int) -> int:
+    """Raw cudaStream_t of PyTorch's current stream on a CUDA device, read
+    anew on every call (the current stream can change between calls).
+    torch._C._cuda_getCurrentRawStream is the private entry point that
+    torch.compile's generated launchers use; it builds no Stream object.
+    The public torch.cuda.current_stream(device).cuda_stream gives the same
+    handle (a gpu test checks that)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def launch(fn, t: torch.Tensor, *args) -> int:
+    """fn(*args, stream) for a CUDA tensor t: on t's device, on its current
+    stream; returns fn's CUDA error code. The device guard is entered only
+    when t is not on the current device (a launch must be made with the
+    stream's device current). The current device is read by the private
+    torch._C._cuda_getDevice, which torch.cuda.current_device wraps after
+    its lazy-init check (CUDA is initialized once t exists)."""
+    dev = t.get_device()
+    if dev == torch._C._cuda_getDevice():
+        return fn(*args, current_stream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, current_stream(dev))

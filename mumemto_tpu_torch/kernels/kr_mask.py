@@ -14,24 +14,27 @@ import ctypes
 
 import torch
 
+from mumemto_tpu_torch.kernels import build
+
 KR_PRIME = 1999999973  # reference KR window-hash modulus (newscan.hpp:84)
 
 launches = 0  # kernel launches made by break_mask (CPU calls do not count)
 
 
-def _lib():
-    from mumemto_tpu_torch.kernels import build
-    lib = build.load("kr_mask")
-    if not getattr(lib, "_typed", False):
-        lib.kr_break_mask.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.kr_break_mask.restype = ctypes.c_int
-        lib.kr_break_mask_max_w.argtypes = []
-        lib.kr_break_mask_max_w.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_fns = None  # (kr_break_mask, its shared-memory tile's max w), bound once
+
+
+def _kernel():
+    global _fns
+    if _fns is None:
+        fn = build.function(
+            "kr_mask", "kr_break_mask", ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p])
+        _fns = (fn, build.function("kr_mask", "kr_break_mask_max_w",
+                                   ctypes.c_int, [])())
+    return _fns
 
 
 def _check(ext: torch.Tensor, w: int, mod: int) -> None:
@@ -76,17 +79,15 @@ def break_mask(ext: torch.Tensor, n_real: int, w: int, mod: int):
     if ext.device.type != "cuda":
         raise ValueError(f"break_mask takes a CPU or CUDA tensor, got "
                          f"{ext.device}")
-    lib = _lib()
-    if w > lib.kr_break_mask_max_w():
+    fn, max_w = _kernel()
+    if w > max_w:
         raise ValueError(f"w={w} does not fit the kernel's shared-memory "
-                         f"tile (max {lib.kr_break_mask_max_w()})")
-    with torch.cuda.device(ext.device):
-        mask = torch.empty(ext.numel(), dtype=torch.bool, device=ext.device)
-        count = torch.zeros(1, dtype=torch.int32, device=ext.device)
-        stream = torch.cuda.current_stream(ext.device).cuda_stream
-        rc = lib.kr_break_mask(ext.data_ptr(), mask.data_ptr(),
-                               count.data_ptr(), ext.numel(), int(n_real),
-                               int(w), int(mod), stream)
+                         f"tile (max {max_w})")
+    mask = torch.empty(ext.numel(), dtype=torch.bool, device=ext.device)
+    count = torch.zeros(1, dtype=torch.int32, device=ext.device)
+    rc = build.launch(fn, ext, ext.data_ptr(), mask.data_ptr(),
+                      count.data_ptr(), ext.numel(), int(n_real), int(w),
+                      int(mod))
     if rc != 0:
         raise RuntimeError(f"kr_break_mask launch failed: CUDA error {rc}")
     launches += 1

@@ -23,6 +23,8 @@ import time
 
 import torch
 
+from mumemto_tpu_torch.kernels import build
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -36,15 +38,17 @@ print("CUDA_PROBE_OK", probe.check(), flush=True)
 """
 
 
-def _lib():
-    from mumemto_tpu_torch.kernels import build
-    lib = build.load("add_one")
-    if not getattr(lib, "_typed", False):
-        lib.add_one_i32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_int64, ctypes.c_void_p]
-        lib.add_one_i32.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_fn = None  # add_one_i32, bound at its first launch
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        _fn = build.function(
+            "add_one", "add_one_i32", ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p])
+    return _fn
 
 
 def _check(x: torch.Tensor) -> None:
@@ -66,15 +70,13 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     """x + 1 by the CUDA kernel; x must be a CUDA tensor."""
     global launches
     _check(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"add_one launches a CUDA kernel and takes a CUDA "
                          f"tensor, got {x.device} (add_one_plain is the "
                          "plain version)")
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.add_one_i32(x.data_ptr(), out.data_ptr(), x.numel(), stream)
+    out = torch.empty_like(x)  # allocated on x's device, on its stream
+    rc = build.launch(_fn or _kernel(), x, x.data_ptr(), out.data_ptr(),
+                      x.numel())
     if rc != 0:
         raise RuntimeError(f"add_one launch failed: CUDA error {rc}")
     launches += 1

@@ -13,6 +13,9 @@ for the algorithm):
                 (group id, parse ISA) into SA order; per-row LCP from the
                 PFP tables, then the interval analysis.
 
+write_parse_files and pfp_from_parse_files save and reload a parse as
+.dict/.parse files (-P, -p).
+
 Pad rows get sort key -1 so they land at the front of the row stream with
 LCP 0 and doc id num_docs. Row arrays are int32 (nr-scale); sort keys and
 the s_lcp_T character sums are int64. Out-of-range scatter targets that
@@ -582,3 +585,83 @@ def scan_collection_pfp(text_np: np.ndarray, doc_ends: np.ndarray,
     return pfp_scan(pfp, doc_ends, num_docs, min_match_len, num_distinct,
                     max_total_freq, max_doc_freq, size_cap=size_cap,
                     need_ctx=need_ctx, phase=phase)
+
+
+# ---------------------------------------------------------------------------
+# .dict/.parse resume files (newscan.hpp:407-419 format)
+# ---------------------------------------------------------------------------
+
+def write_parse_files(rb, prefix: str, device: torch.device, w: int = 10,
+                      mod: int = 100) -> None:
+    """-P/--only-parse: write PREFIX.dict (lex-sorted phrases, EndOfWord
+    after each, then EndOfDict) and PREFIX.parse (u32 1-based ranks), from
+    the same parse as the scan (build_pfp on `device`, so the KR kernel
+    runs on a CUDA device) and the same D (_dict_setup)."""
+    pfp = build_pfp(rb.text, device, w=w, mod=mod)
+    phrase_st, phrase_ln, d_starts_pad, npz, total_real, nd = \
+        _pad_phrase_arrays(pfp)
+
+    def up(a):
+        return torch.from_numpy(a).to(device)
+    d, _meta = _dict_setup(pfp.ext, up(phrase_st), up(phrase_ln),
+                           up(d_starts_pad), npz, total_real, nd,
+                           int(pfp.ext.shape[0]))
+    with open(prefix + ".dict", "wb") as f:
+        f.write(d[:pfp.d_len].cpu().numpy().tobytes())
+    with open(prefix + ".parse", "wb") as f:
+        f.write(pfp.parse.astype("<u4").tobytes())
+
+
+def read_parse_files(prefix: str):
+    """PREFIX.dict/.parse (ours or the reference's) as (dict body, phrase
+    starts, phrase lengths, parse ids). A .dict that does not end with
+    EndOfDict (a truncated file) raises ValueError."""
+    d = np.fromfile(prefix + ".dict", dtype=np.uint8)
+    parse = np.fromfile(prefix + ".parse", dtype="<u4").astype(np.int32)
+    if d.size == 0 or d[-1] != TERM:
+        raise ValueError(f"{prefix}.dict does not end with the EndOfDict "
+                         "byte: truncated or not a PFP dictionary")
+    # split D on EndOfWord separators
+    body = d[:-1]
+    seps = np.flatnonzero(body == SEP)
+    starts = np.concatenate([[0], seps[:-1] + 1])
+    lens = seps - starts
+    return body, starts.astype(np.int32), lens.astype(np.int32), parse
+
+
+def pfp_from_parse_files(prefix: str, device: torch.device,
+                         w: int = 10) -> PFPData:
+    """-p/--from-parse resume (pfp_mum.cpp:122-123, pfp.hpp:105-129):
+    PFPData from PREFIX.dict/.parse without the FASTAs, ext on `device`.
+
+    The dict body is the phrase byte store (ext): phrase records address
+    their bytes in it, so _dict_setup rebuilds the same D. Text length
+    comes from the PFP invariant: occurrence j+1 starts phrase_ln[parse[j]]
+    - w chars after occurrence j, and occurrence 0 at -1 (the Dollar)."""
+    body, starts, lens, parse = read_parse_files(prefix)
+    num_phrases = int(lens.size)
+    m = int(parse.size)
+    if parse.size and (int(parse.min()) < 1 or int(parse.max()) > num_phrases):
+        raise ValueError(
+            f"{prefix}.parse references phrase ids outside the .dict "
+            f"(1..{num_phrases})")
+    # every PFP phrase ends with the w-char trigger window of the next
+    # phrase, so real phrase lengths are >= w+1; shorter ones mean the
+    # files were written with a different window than the caller's w
+    if lens.size and int(lens.min()) <= w:
+        raise ValueError(
+            f"{prefix}.dict contains a phrase of length {int(lens.min())} "
+            f"<= w={w}: window mismatch with the parse files")
+    phrase_st = np.zeros(num_phrases + 1, np.int32)
+    phrase_ln = np.zeros(num_phrases + 1, np.int32)
+    phrase_st[1:] = starts
+    phrase_ln[1:] = lens
+    ext_pad = np.zeros(bucket(body.size + 1), np.uint8)
+    ext_pad[:body.size] = body
+    step = (phrase_ln[parse] - w).astype(np.int64)
+    return PFPData(w=w, n_text=int(step.sum()) - 1, m=m,
+                   num_phrases=num_phrases,
+                   d_len=int(phrase_ln.sum()) + num_phrases + 1,
+                   ext=torch.from_numpy(ext_pad).to(device), parse=parse,
+                   phrase_st=phrase_st, phrase_ln=phrase_ln,
+                   alpha=_alphabet(body))

@@ -1,9 +1,11 @@
-"""Compaction of the selected intervals into host-sized windows, in PyTorch.
+"""The direct (-g) scan and the compaction of the selected intervals into
+host-sized windows, in PyTorch.
 
-Port of the compactions of mumemto_tpu/ops/pipeline.py: the selected rows
-are put in the reference's pop order (close row e ascending, length L
-descending) and their fields, (M, W) windows of SA values and doc ids, or
-merge-threshold inputs are gathered on the device, so only O(matches)
+Port of mumemto_tpu/ops/pipeline.py. scan_collection builds the full-text
+index and runs the interval analysis without a parse. The compactions put
+the selected rows in the reference's pop order (close row e ascending,
+length L descending) and gather their fields, (M, W) windows of SA values
+and doc ids, or merge-threshold inputs on the device, so only O(matches)
 data reaches the host.
 """
 
@@ -11,7 +13,67 @@ from __future__ import annotations
 
 import torch
 
+from mumemto_tpu_torch.ops import intervals as ops_intervals
+from mumemto_tpu_torch.ops import suffix as ops_suffix
 from mumemto_tpu_torch.ops.suffix import I32, I64
+
+
+def scan_collection(text: torch.Tensor, doc_ends: torch.Tensor, n: int,
+                    num_docs: int, min_match_len: int, num_distinct: int,
+                    max_total_freq: int, max_doc_freq: int,
+                    size_cap: int | None = None, need_ctx: bool = True,
+                    alpha_thresholds=None, lcp_thresholds=None, phase=None):
+    """Direct (-g) backend on text's device: uncapped prefix doubling of
+    the zero-padded text (n chars), exact LCP, BWT and doc ids, then the
+    interval analysis. Returns (res, counts) with counts = [emit, cand,
+    BWT runs]. phase(name) is called after the suffix_array, lcp and
+    analyze stages.
+
+    alpha_thresholds (<= 8 distinct bytes) seed 8-char ranks and take the
+    PLCP LCP; otherwise the rank descent with the packed bottom
+    (lcp_thresholds). The uncapped history ends with an all-distinct rank
+    row, so the LCP is exact on every real row; the zero-pad class is
+    pinned by canonicalize_pad_lcp (doc_ends[num_docs-1] + 1 is the first
+    pad position). The PLCP runs with probe_words=2, where the JAX backend
+    uses 1: the values do not depend on it, and the 18-char probe leaves
+    fewer rows to the descent."""
+    sa, hist, num_lvl = ops_suffix._suffix_array_impl(
+        text, n, packed_init=True, alpha_thresholds=alpha_thresholds)
+    if phase is not None:
+        phase("suffix_array")
+    if alpha_thresholds is not None:
+        # deep_cap n//4, as in JAX: the repetitive full text leaves far
+        # more saturated irreducible rows than the dictionary does
+        lcp, _isa = ops_suffix._lcp_plcp_impl(
+            sa, hist, text, n, hist.shape[0], alpha_thresholds,
+            deep_cap=max(n // 4, 1024), num_lvl=num_lvl)
+    else:
+        lcp = ops_suffix._lcp_impl(sa, hist, num_lvl, n, text=text,
+                                   bottom_thresholds=lcp_thresholds)
+    del hist
+    lcp = ops_suffix.canonicalize_pad_lcp(
+        lcp, sa, int(doc_ends[num_docs - 1]) + 1, n)
+    if phase is not None:
+        phase("lcp")
+    bwt = ops_suffix.bwt_of(text, sa)
+    da = ops_suffix.doc_array(sa, doc_ends, num_docs)
+    res = ops_intervals.analyze_intervals(
+        lcp, da, bwt, n, min_match_len, num_distinct, max_total_freq,
+        max_doc_freq, size_cap=size_cap, need_ctx=need_ctx)
+    res["sa"] = sa
+    res["da"] = da
+    res["lcp"] = lcp
+    res["bwt"] = bwt
+    # BWT run count over real rows (the reference's n/r stat,
+    # pfp_mum.cpp:148-150); pad rows (da == num_docs) excluded
+    real = da < num_docs
+    change = (bwt[1:] != bwt[:-1]) & real[1:] & real[:-1]
+    nruns = change.sum(dtype=I32) + 1
+    counts = torch.stack([res["emit"].sum(dtype=I32),
+                          res["cand"].sum(dtype=I32), nruns])
+    if phase is not None:
+        phase("analyze")
+    return res, counts
 
 
 def _select_ordered(mask: torch.Tensor, e: torch.Tensor, lcp: torch.Tensor,

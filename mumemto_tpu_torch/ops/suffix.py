@@ -1,7 +1,7 @@
 """Suffix array and LCP construction by prefix doubling, in PyTorch.
 
-Port of mumemto_tpu/ops/suffix.py (the parts the PFP main path runs):
-O(log n) doubling rounds, each a stable sort of composite int64
+Port of mumemto_tpu/ops/suffix.py (what the PFP path and the direct -g
+backend run): O(log n) doubling rounds, each a stable sort of composite int64
 (rank, rank-at-offset) keys; the per-round rank rows are kept as a "rank
 history" from which the LCP array is computed exactly by rank descent.
 All row arrays are int32; sort keys are int64.
@@ -176,8 +176,9 @@ def _lcp_impl(sa: torch.Tensor, hist: torch.Tensor, num_lvl: int, n: int,
 
 def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
                    n: int, levels: int, probe_thr: tuple, deep_cap: int,
-                   probe_words: int = 2):
-    """Adjacent-row LCP of a depth-capped history by the irreducible-LCP
+                   probe_words: int = 2, num_lvl: int | None = None,
+                   stats: dict | None = None):
+    """Adjacent-row LCP from a doubling history by the irreducible-LCP
     (PLCP) decomposition; returns (lcp, isa). Port of the JAX function of
     the same name (valid for <= 8-letter alphabets).
 
@@ -187,11 +188,18 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     the rank descent. The JAX version sizes that descent by static buffer
     tiers chosen with lax.cond; here the deep rows are compacted with an
     exact-size nonzero, so one host branch remains: the compacted descent
-    when n_deep <= deep_cap, else the full-width descent (same values)."""
+    when n_deep <= deep_cap, else the full-width descent (same values).
+
+    num_lvl: the filled-row count of an uncapped (early-exit) history,
+    whose rows from num_lvl on are zeros; the descent then reads row
+    min(lvl, num_lvl - 1), as _lcp_impl does. None (the depth-capped
+    dictionary, every row filled) reads row min(lvl, L). stats, when given,
+    receives n_deep, deep_cap and the branch taken."""
     if probe_words not in (1, 2):
         raise ValueError(f"probe_words must be 1 or 2, got {probe_words}")
     L = hist.shape[0] - 1
     top = min(levels - 1, L)
+    last_row = L if num_lvl is None else int(num_lvl) - 1
     dev = sa.device
     idx = torch.arange(n, dtype=I32, device=dev)
 
@@ -240,7 +248,7 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
         9-char probe for the < 8-char residual."""
         h = torch.zeros(m, dtype=I32, device=dev)
         for lvl in range(top, 2, -1):
-            inb, ra, rb = _gather_pair(hist[min(lvl, L)], a, b, h, n)
+            inb, ra, rb = _gather_pair(hist[min(lvl, last_row)], a, b, h, n)
             h = torch.where(inb & (ra == rb), h + (1 << lvl), h)
         inb, wa, wb = _gather_pair(pw, a, b, h, n)
         wa = wa & mask9
@@ -252,6 +260,9 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
         return torch.where(inb, h + nc, h)
 
     n_deep = int(deep.sum())
+    if stats is not None:
+        stats.update(n_deep=n_deep, deep_cap=deep_cap,
+                     branch="full" if n_deep > deep_cap else "compacted")
     if n_deep > deep_cap:
         lcp = descend(prev_sa, sa, n)
         lcp[0] = 0
@@ -281,3 +292,31 @@ def canonicalize_pad_lcp(lcp: torch.Tensor, sa: torch.Tensor, total,
     out = torch.where(both_pad, canon, lcp)
     out[0] = 0
     return out
+
+
+def suffix_lcp_arrays(text: torch.Tensor):
+    """Full index of a zero-padded byte text: (sa, lcp, bwt) tensors on its
+    device, by uncapped doubling with the packed seed and rank descent.
+    bwt[j] = text[(sa[j] - 1) mod n] (direct_gsacak.hpp:64-67). The packed
+    seed needs every char < 127 and >= 4 trailing zero-pad chars."""
+    n = int(text.shape[0])
+    if n and int(text.max()) >= 127:
+        raise ValueError("the packed SA seed needs every char < 127")
+    sa, hist, num_lvl = _suffix_array_impl(text, n, packed_init=True)
+    lcp = _lcp_impl(sa, hist, num_lvl, n, levels=num_lvl)
+    return sa, lcp, bwt_of(text, sa)
+
+
+def bwt_of(text: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
+    """text[(sa - 1) mod n]: the char before each suffix, cyclically."""
+    n = text.shape[0]
+    return text[(sa.to(I64) + (n - 1)) % n]
+
+
+def doc_array(sa: torch.Tensor, doc_ends: torch.Tensor,
+              num_docs: int) -> torch.Tensor:
+    """Doc id per SA row: the count of doc ends <= the position (sdsl rank
+    semantics, ref_builder.cpp:183-190); pad and sentinel rows get
+    num_docs."""
+    da = torch.searchsorted(doc_ends.to(sa.dtype), sa, right=True)
+    return torch.clamp(da, max=num_docs).to(I32)

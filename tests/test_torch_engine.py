@@ -1,10 +1,12 @@
 """End-to-end port against mumemto_tpu: .mums, .mems, .bumbl and merge
-metadata bytes, the CLI, the oracle, and the rule that the port never
-imports jax.
+metadata bytes, the direct backend (-g), the parse files (-P/-p), the
+array checkpoints (-A/-a), the CLI, the oracle, and the rule that the port
+never imports jax.
 
 Tolerance: byte equality of the written outputs.
 """
 
+import dataclasses
 import gzip
 import os
 import subprocess
@@ -248,8 +250,7 @@ def test_module_entry_point(rng, tmp_path):
     assert os.path.exists(out + ".lengths")
 
 
-@pytest.mark.parametrize("argv", [["-g"], ["-A"], ["-P"], ["--seq-shards", "2"],
-                                  ["-p", "x"], ["-a", "x"]])
+@pytest.mark.parametrize("argv", [["--seq-shards", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, capsys, argv):
     assert t_cli.main(["g.fa", "-o", str(tmp_path / "o"), *argv]) == 2
     assert "not yet ported" in capsys.readouterr().err
@@ -264,8 +265,11 @@ def test_cli_refuses_subcommands(capsys):
 def test_port_never_imports_jax():
     code = ("import sys; import mumemto_tpu_torch, mumemto_tpu_torch.engine,"
             " mumemto_tpu_torch.cli, mumemto_tpu_torch.convert,"
+            " mumemto_tpu_torch.device,"
             " mumemto_tpu_torch.kernels.kr_mask, mumemto_tpu_torch.kernels.build,"
-            " mumemto_tpu_torch.kernels.probe, mumemto_tpu_torch.ops.pipeline;"
+            " mumemto_tpu_torch.kernels.probe, mumemto_tpu_torch.ops.pipeline,"
+            " mumemto_tpu_torch.ops.suffix, mumemto_tpu_torch.ops.pfp,"
+            " mumemto_tpu_torch.ops.intervals;"
             " assert 'jax' not in sys.modules, sorted("
             "m for m in sys.modules if m.startswith('jax'))")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -314,3 +318,219 @@ def test_cuda_outputs_match_cpu(rng, tmp_path, kw):
         if name.startswith("cuda."):
             other = tmp_path / ("cpu." + name[len("cuda."):])
             assert (tmp_path / name).read_bytes() == other.read_bytes(), name
+
+
+# (label, MatchOptions keywords): MUM mode, multi-MEMs, merge metadata
+ROUTE_MODES = [("mums", {}), ("-f 3", {"rare_freq": 3}),
+               ("-M", {"merge": True})]
+
+
+def _same_results(got, want, opts):
+    assert got.output_bytes() == want.output_bytes()
+    assert got.num_matches == want.num_matches > 0
+    if opts.merge:
+        assert (got.candidate_thresh == want.candidate_thresh).all()
+        assert (got.mum_positions == want.mum_positions).all()
+
+
+def _route_rb(rng):
+    rep = rand_seq(rng, 40)
+    return build(mutated_collection(rng, 4, base_len=400, insert_rep=rep))
+
+
+def _route_docs(rng):
+    return mutated_collection(rng, 3, base_len=400,
+                              insert_rep=rand_seq(rng, 40))
+
+
+@pytest.mark.parametrize("label,kw", ROUTE_MODES)
+def test_direct_backend_matches_jax(rng, label, kw):
+    rb = _route_rb(rng)
+    opts = options.normalize(rb.num_docs, quiet=True, **kw)
+    want = jax_engine.find_matches(rb, opts, backend="direct",
+                                   show_progress=False)
+    got = t_engine.find_matches(rb, opts, device="cpu", backend="direct")
+    _same_results(got, want, opts)
+    assert got.bwt_runs == want.bwt_runs
+    assert got.text_length == want.text_length == rb.text.size
+    pfp = t_engine.find_matches(rb, opts, device="cpu")
+    assert pfp.output_bytes() == got.output_bytes()
+    with pytest.raises(ValueError, match="unknown backend"):
+        t_engine.find_matches(rb, opts, device="cpu", backend="gsacak")
+
+
+@pytest.mark.parametrize("label,kw", ROUTE_MODES)
+def test_parse_prefix_resume_matches_jax(rng, tmp_path, label, kw):
+    """-p: the scan resumes from .dict/.parse with no text (rb.text is
+    None); results equal the JAX resume and the port's full run, and
+    text_length falls back to the .lengths total."""
+    from mumemto_tpu.ops import pfp as jax_pfp
+    rb = _route_rb(rng)
+    opts = options.normalize(rb.num_docs, quiet=True, **kw)
+    pre = str(tmp_path / "ck")
+    jax_pfp.write_parse_files(rb, pre)
+    meta = dataclasses.replace(rb, text=None)
+    want = jax_engine.find_matches(meta, opts, parse_prefix=pre,
+                                   show_progress=False)
+    stages = []
+    got = t_engine.find_matches(meta, opts, device="cpu", parse_prefix=pre,
+                                phase=stages.append)
+    _same_results(got, want, opts)
+    assert got.bwt_runs == want.bwt_runs
+    assert got.text_length == want.text_length == sum(rb.seq_lengths)
+    assert stages[0] == "read_parse" and "build_pfp" not in stages
+    full = t_engine.find_matches(rb, opts, device="cpu")
+    assert got.output_bytes() == full.output_bytes()
+
+
+@pytest.mark.parametrize("label,kw", ROUTE_MODES)
+@pytest.mark.parametrize("backend", ["pfp", "direct"])
+def test_arrays_out_and_replay_match_jax(rng, tmp_path, label, kw, backend):
+    """-A writes .sa/.lcp/.bwt from the scan's rows (real rows only, equal
+    to JAX's bytes); find_matches_from_arrays replays them (-a) to the
+    same results as JAX's replay and the scan itself."""
+    from mumemto_tpu import formats
+    rb = _route_rb(rng)
+    opts = options.normalize(rb.num_docs, quiet=True, **kw)
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    want = jax_engine.find_matches(rb, opts, backend=backend,
+                                   arrays_out_prefix=out_j,
+                                   show_progress=False)
+    got = t_engine.find_matches(rb, opts, device="cpu", backend=backend,
+                                arrays_out_prefix=out_t)
+    _same_results(got, want, opts)
+    for ext in (".sa", ".lcp", ".bwt"):
+        a = (tmp_path / ("jax" + ext)).read_bytes()
+        assert a and (tmp_path / ("torch" + ext)).read_bytes() == a, ext
+    assert os.path.getsize(out_t + ".sa") == 5 * rb.text.size
+    sa = formats.read_5byte(out_t + ".sa").astype(np.int64)
+    lcp = formats.read_5byte(out_t + ".lcp").astype(np.int64)
+    bwt = formats.read_rl_bwt(out_t + ".bwt")
+    da = rb.doc_array(sa)
+    replay_j = jax_engine.find_matches_from_arrays(sa, lcp, bwt, da, rb, opts)
+    replay_t = t_engine.find_matches_from_arrays(sa, lcp, bwt, da, rb, opts,
+                                                 device="cpu")
+    _same_results(replay_t, replay_j, opts)
+    assert replay_t.output_bytes() == got.output_bytes()
+
+
+@pytest.mark.parametrize("label,kw", ROUTE_MODES)
+def test_compute_arrays_matches_jax(rng, label, kw):
+    rb = _route_rb(rng)
+    opts = options.normalize(rb.num_docs, quiet=True, **kw)
+    want = jax_engine.compute_arrays(rb)
+    got = t_engine.compute_arrays(rb, device="cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == np.asarray(w).dtype
+        assert (g == np.asarray(w)).all()
+    _same_results(
+        t_engine.find_matches_from_arrays(*got, rb, opts, device="cpu"),
+        jax_engine.find_matches_from_arrays(*want, rb, opts), opts)
+    assert t_engine.pad_size(rb.text.size) == jax_engine.pad_size(
+        rb.text.size)
+    for n in (0, 4092, 4093, 6140, 6141, 10**6):
+        assert t_engine.pad_size(n) == jax_engine.pad_size(n)
+
+
+def _cli_both(argv_j, argv_t):
+    assert jax_cli.main(argv_j) == 0
+    assert t_cli.main(argv_t + ["--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("flags", [[], ["-f", "3"]])
+def test_cli_parse_then_resume_matches_jax(rng, tmp_path, flags):
+    """-P writes .dict/.parse/.lengths, -p resumes (no FASTA) to the same
+    output as the full run; every file equals the JAX package's."""
+    paths = _write_fastas(tmp_path, _route_docs(rng))
+    out = tmp_path / "out"
+    out.mkdir()
+    j, t = str(out / "jax"), str(out / "torch")
+    _cli_both(paths + ["-o", j, "-P"], paths + ["-o", t, "-P"])
+    _same_files(out, [".dict", ".parse", ".lengths"])
+    res = tmp_path / "res"
+    res.mkdir()
+    _cli_both(["-p", j, "-o", str(res / "jax"), *flags],
+              ["-p", t, "-o", str(res / "torch"), *flags])
+    ext = ".mems" if flags else ".mums"
+    _same_files(res, [ext])
+    assert t_cli.main(paths + ["-o", str(tmp_path / "full"), *flags,
+                               "--device", "cpu"]) == 0
+    assert (res / ("torch" + ext)).read_bytes() == \
+        (tmp_path / ("full" + ext)).read_bytes()
+
+
+@pytest.mark.parametrize("flags", [[], ["-g"], ["-M"]])
+def test_cli_arrays_out_then_replay_matches_jax(rng, tmp_path, flags):
+    """-A writes .sa/.lcp/.bwt beside the matches, -a replays them (no
+    FASTA) to the same matches; every file equals the JAX package's."""
+    paths = _write_fastas(tmp_path, _route_docs(rng))
+    out = tmp_path / "out"
+    out.mkdir()
+    j, t = str(out / "jax"), str(out / "torch")
+    _cli_both(paths + ["-o", j, "-A", *flags], paths + ["-o", t, "-A", *flags])
+    merge = [".thresh", ".thresh_rev"] if "-M" in flags else []
+    _same_files(out, [".sa", ".lcp", ".bwt", ".mums", ".lengths"] + merge)
+    res = tmp_path / "res"
+    res.mkdir()
+    _cli_both(["-a", j, "-o", str(res / "jax")],
+              ["-a", t, "-o", str(res / "torch")])
+    _same_files(res, [".mums"])
+    assert (res / "torch.mums").read_bytes() == \
+        (out / "torch.mums").read_bytes()
+
+
+def test_cli_gsacak_routes_direct_backend(rng, tmp_path, monkeypatch):
+    """-g runs the direct backend (and the default run does not); its
+    .mums equal the JAX package's -g and the PFP run's."""
+    from mumemto_tpu_torch.ops import pipeline as t_pipeline
+    calls = []
+    real = t_pipeline.scan_collection
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(t_pipeline, "scan_collection", spy)
+    paths = _write_fastas(tmp_path, _route_docs(rng))
+    out = tmp_path / "out"
+    out.mkdir()
+    assert t_cli.main(paths + ["-o", str(tmp_path / "pfp"),
+                               "--device", "cpu"]) == 0
+    assert not calls, "the default run must not use the direct backend"
+    _cli_both(paths + ["-o", str(out / "jax"), "-g"],
+              paths + ["-o", str(out / "torch"), "-g"])
+    assert calls, "-g must route to the direct backend"
+    _same_files(out, [".mums", ".lengths"])
+    assert (out / "torch.mums").read_bytes() == \
+        (tmp_path / "pfp.mums").read_bytes()
+
+
+def test_cli_resume_without_inputs_fails_cleanly(tmp_path, capsys):
+    assert t_cli.main(["-o", str(tmp_path / "o"), "--device", "cpu"]) == 1
+    assert "Need to provide" in capsys.readouterr().err
+    assert t_cli.main(["-p", str(tmp_path / "missing"), "-o",
+                       str(tmp_path / "o"), "--device", "cpu"]) == 1
+
+
+@pytest.mark.gpu
+def test_cuda_routes_match_cpu(rng, tmp_path):
+    """-g, -A and -P on the card write the CPU path's bytes; -p and -a
+    replay them on the card to the same .mums."""
+    from mumemto_tpu_torch.ops import pfp as t_pfp
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rb = _route_rb(rng)
+    opts = options.normalize(rb.num_docs, quiet=True)
+    for dev in ("cuda", "cpu"):
+        pre = str(tmp_path / dev)
+        res = t_engine.find_matches(rb, opts, device=dev, backend="direct",
+                                    arrays_out_prefix=pre)
+        t_engine.write_outputs(res, rb, pre)
+        t_pfp.write_parse_files(rb, pre, torch.device(dev))
+    for ext in (".mums", ".sa", ".lcp", ".bwt", ".dict", ".parse"):
+        a = (tmp_path / ("cuda" + ext)).read_bytes()
+        assert a and a == (tmp_path / ("cpu" + ext)).read_bytes(), ext
+    meta = dataclasses.replace(rb, text=None)
+    got = t_engine.find_matches(meta, opts, device="cuda",
+                                parse_prefix=str(tmp_path / "cuda"))
+    assert got.output_bytes() == (tmp_path / "cpu.mums").read_bytes()

@@ -168,3 +168,48 @@ def test_rmq_query_matches_and_guards(rng):
     with pytest.raises(ValueError, match="overflow"):
         t_pfp._rmq_query(big, torch.zeros(1, dtype=torch.int32),
                          torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["acgt", "with_n"])
+def test_parse_files_match_jax(rng, tmp_path, variant):
+    """-P's .dict/.parse bytes, and every PFPData field -p rebuilds from
+    them, equal the JAX package's."""
+    rb = _collection(rng, variant)
+    jax_pfp.write_parse_files(rb, str(tmp_path / "jax"), w=10, mod=100)
+    t_pfp.write_parse_files(rb, str(tmp_path / "torch"), CPU, w=10, mod=100)
+    for ext in (".dict", ".parse"):
+        want = (tmp_path / ("jax" + ext)).read_bytes()
+        assert want and (tmp_path / ("torch" + ext)).read_bytes() == want
+    pj = jax_pfp.pfp_from_parse_files(str(tmp_path / "jax"), w=10)
+    pt = t_pfp.pfp_from_parse_files(str(tmp_path / "torch"), CPU, w=10)
+    for f in ("w", "n_text", "m", "num_phrases", "d_len", "alpha"):
+        assert getattr(pt, f) == getattr(pj, f), f
+    for f in ("ext", "parse", "phrase_st", "phrase_ln"):
+        assert _eq(getattr(pt, f), getattr(pj, f)), f
+    assert pt.ext.device == CPU
+    assert pt.n_text == rb.text.size
+    body, starts, lens, parse = t_pfp.read_parse_files(str(tmp_path / "torch"))
+    for a, b in zip((body, starts, lens, parse),
+                    jax_pfp.read_parse_files(str(tmp_path / "jax"))):
+        assert _eq(a, b)
+
+
+def test_parse_files_refuse_bad_input(rng, tmp_path):
+    rb = _collection(rng, "acgt")
+    pre = str(tmp_path / "ck")
+    t_pfp.write_parse_files(rb, pre, CPU)
+    d = (tmp_path / "ck.dict").read_bytes()
+    (tmp_path / "ck.dict").write_bytes(d[:-7])  # truncated
+    with pytest.raises(ValueError, match="EndOfDict"):
+        t_pfp.pfp_from_parse_files(pre, CPU)
+    (tmp_path / "ck.dict").write_bytes(b"")
+    with pytest.raises(ValueError, match="EndOfDict"):
+        t_pfp.read_parse_files(pre)
+    (tmp_path / "ck.dict").write_bytes(d)
+    with pytest.raises(ValueError, match="window mismatch"):
+        t_pfp.pfp_from_parse_files(pre, CPU, w=40)
+    p = np.fromfile(str(tmp_path / "ck.parse"), dtype="<u4")
+    p[0] = 10**6
+    p.tofile(str(tmp_path / "ck.parse"))
+    with pytest.raises(ValueError, match="outside the .dict"):
+        t_pfp.pfp_from_parse_files(pre, CPU)

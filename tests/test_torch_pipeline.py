@@ -1,9 +1,11 @@
-"""ops/pipeline compactions against mumemto_tpu.ops.pipeline.
+"""ops/pipeline against mumemto_tpu.ops.pipeline: the direct (-g) scan
+and the compactions.
 
-One JAX PFP scan (with the merge contexts) is carried into the port with
-convert.from_jax_res, and every compaction runs on it in both packages.
-Tolerance: exact equality, pad rows included — every output is an integer
-or boolean array.
+The direct scan runs in both packages on the same padded text. For the
+compactions, one JAX PFP scan (with the merge contexts) is carried into
+the port with convert.from_jax_res, and every compaction runs on it in
+both packages. Tolerance: exact equality, pad rows included — every
+output is an integer or boolean array.
 """
 
 import numpy as np
@@ -102,3 +104,57 @@ def test_from_jax_res_dtypes(collection):
     for key, val in res_t.items():
         assert val.device == CPU
         assert val.numpy().dtype == np.asarray(res_j[key]).dtype, key
+
+
+def _direct_rb(rng, variant):
+    """An ACGT collection (<= 8 distinct bytes with the pad: the 8-char
+    seed and the PLCP LCP), or one over 9 letters without revcomp (the
+    7-bit seed and the rank descent)."""
+    if variant == "acgt":
+        return build(mutated_collection(rng, 3, base_len=300,
+                                        insert_rep=rand_seq(rng, 40)))
+    letters = list("ACGTRYKMS")
+    base = "".join(rng.choice(letters, 300))
+    docs = []
+    for _ in range(3):
+        s = list(base)
+        for i in rng.integers(0, 300, 6):
+            s[i] = rng.choice(letters)
+        docs.append(["".join(s)])
+    return build(docs, use_revcomp=False)
+
+
+@pytest.mark.parametrize("variant", ["acgt", "nine_letters"])
+@pytest.mark.parametrize("k,f,F", [(0, 1, 0), (0, 3, 0), (0, 0, 0)])
+def test_scan_collection_matches_jax(rng, variant, k, f, F):
+    """The direct (-g) backend: every res key and the counts, exactly."""
+    import jax.numpy as jnp
+    rb = _direct_rb(rng, variant)
+    opts = options.normalize(rb.num_docs, num_distinct_docs=k, rare_freq=f,
+                             max_mem_freq=F, quiet=True)
+    n = jax_engine.pad_size(rb.text.size)
+    text = np.zeros(n, np.uint8)
+    text[:rb.text.size] = rb.text
+    seed_thr, lcp_thr = jax_pfp.seed_thresholds(
+        set(jax_pfp._alphabet(rb.text)) | {0})
+    assert (seed_thr is None) == (variant == "nine_letters")
+    size_cap = jax_engine.interval_size_cap(opts, rb.num_docs)
+    res_j, counts_j = jax_pipeline.scan_collection(
+        jnp.asarray(text), jnp.asarray(rb.doc_ends, dtype=jnp.int32), n,
+        rb.num_docs, np.int32(opts.min_match_len),
+        np.int32(opts.num_distinct), np.int32(opts.max_total_freq),
+        opts.max_doc_freq, size_cap=size_cap, need_ctx=True,
+        alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr)
+    stages = []
+    res_t, counts_t = t_pipeline.scan_collection(
+        torch.from_numpy(text), torch.from_numpy(rb.doc_ends), n,
+        rb.num_docs, opts.min_match_len, opts.num_distinct,
+        opts.max_total_freq, opts.max_doc_freq, size_cap=size_cap,
+        need_ctx=True, alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr,
+        phase=stages.append)
+    assert stages == ["suffix_array", "lcp", "analyze"]
+    assert (counts_t.numpy() == np.asarray(counts_j)).all()
+    assert int(counts_t[0]) > 0
+    assert set(res_t) == set(res_j)
+    for key, want in res_j.items():
+        assert (res_t[key].numpy() == np.asarray(want)).all(), key

@@ -114,3 +114,44 @@ def test_cuda_kernel_matches_plain():
         cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert run.returncode == 0, run.stdout + run.stderr
     assert "CUDA_PROBE_OK" in run.stdout
+
+
+@pytest.mark.gpu
+def test_current_stream_matches_public_api():
+    """build.current_stream (a private torch entry point) gives the handle
+    of torch.cuda.current_stream(dev).cuda_stream, on the default stream
+    and under a side stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.cuda.current_device()
+    assert torch._C._cuda_getDevice() == dev  # what build.launch reads
+    assert build.current_stream(dev) == \
+        torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert build.current_stream(dev) == side.cuda_stream
+        x = torch.arange(-3000, 3001, dtype=torch.int32, device="cuda")
+        got = probe.add_one(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probe.add_one_plain(x))
+    assert build.current_stream(dev) == \
+        torch.cuda.current_stream(dev).cuda_stream
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start,stop", [(1, None), (3, 10), (0, 1), (0, 3),
+                                        (0, 1000003), (2, 1000003)])
+def test_cuda_kernel_misaligned_and_odd(start, stop):
+    """Views that are not 16-byte aligned take the scalar body, lengths
+    that are not a multiple of 4 the vector body's tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    base = torch.from_numpy(np.random.default_rng(7).integers(
+        -2**31, 2**31, 1000003, dtype=np.int64).astype(np.int32)).cuda()
+    x = base[start:stop]
+    assert x.is_contiguous()
+    before = probe.launches
+    got = probe.add_one(x)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert torch.equal(got, probe.add_one_plain(x))

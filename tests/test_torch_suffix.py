@@ -180,3 +180,93 @@ def test_route_set_and_shift(rng):
         got = t_suffix._shift_static(_t(v), k, 300, -1).numpy()
         assert (got == np.asarray(jax_suffix._shift_static(
             jnp.asarray(v), k, 300, -1))).all()
+
+
+def _direct_text(rng, base_len=1200):
+    """A zero-padded 3-doc collection text, as the direct backend pads it:
+    (padded text, its seed thresholds, first pad position)."""
+    from mumemto_tpu import engine as jax_engine
+    rb = build(mutated_collection(rng, 3, base_len=base_len, n_mut=30))
+    padded = np.zeros(jax_engine.pad_size(rb.text.size), dtype=np.uint8)
+    padded[:rb.text.size] = rb.text
+    seed_thr, _ = jax_pfp.seed_thresholds(set(jax_pfp._alphabet(rb.text))
+                                          | {0})
+    return padded, seed_thr, int(rb.doc_ends[-1]) + 1
+
+
+@functools.partial(jax.jit, static_argnames=("n", "thr", "deep_cap"))
+def _jax_direct_plcp(text, n, thr, deep_cap):
+    # the 7-bit seed tells the zero pad from the past-the-end slot, so the
+    # doubling exits early and leaves zero rows; the 3-bit seed (the -g
+    # backend's) codes both as 0 and always fills every row
+    sa, hist, num_lvl = jax_suffix._suffix_array_impl(
+        text, n, packed_init=True)
+    lcp, isa = jax_suffix._lcp_plcp_impl(sa, hist, text, n, hist.shape[0],
+                                         thr, deep_cap=deep_cap,
+                                         num_lvl=num_lvl)
+    return sa, hist, num_lvl, lcp, isa
+
+
+@pytest.mark.parametrize("probe_words", [1, 2])
+@pytest.mark.parametrize("cap", ["quarter", "full_width"])
+def test_plcp_uncapped_history_num_lvl_exact(rng, probe_words, cap):
+    """PLCP on an uncapped, early-exit history (the rows past the exit are
+    zeros) with num_lvl: lcp and isa exact against the JAX function, in
+    the compacted and the full-width branch. Without num_lvl the descent
+    reads the zero rows and counts every pair as equal there."""
+    text, thr, total = _direct_text(rng)
+    n = text.size
+    deep_cap = max(n // 4, 1024) if cap == "quarter" else 1
+    sa_j, hist_j, lvl_j, lcp_j, isa_j = _jax_direct_plcp(
+        jnp.asarray(text), n, thr, deep_cap)
+    lvl = int(lvl_j)
+    hist = np.asarray(hist_j)
+    assert lvl < hist.shape[0] and not hist[lvl:].any()
+    stats = {}
+    lcp_t, isa_t = t_suffix._lcp_plcp_impl(
+        _t(sa_j), _t(hist), _t(text), n, hist.shape[0], thr,
+        deep_cap=deep_cap, probe_words=probe_words, num_lvl=lvl, stats=stats)
+    assert stats["branch"] == ("full" if cap == "full_width"
+                               else "compacted")
+    assert stats["n_deep"] > 0
+    lcp_j = jax_suffix.canonicalize_pad_lcp(lcp_j, sa_j, total, n)
+    got = t_suffix.canonicalize_pad_lcp(lcp_t, _t(sa_j), total, n).numpy()
+    assert (got == np.asarray(lcp_j)).all()
+    assert (isa_t.numpy() == np.asarray(isa_j)).all()
+    # the repair's witness: the same call reading the zero rows differs
+    stale, _ = t_suffix._lcp_plcp_impl(
+        _t(sa_j), _t(hist), _t(text), n, hist.shape[0], thr,
+        deep_cap=deep_cap, probe_words=probe_words)
+    stale = t_suffix.canonicalize_pad_lcp(stale, _t(sa_j), total, n).numpy()
+    assert (stale != got).any()
+
+
+@pytest.mark.parametrize("kind", ["random", "repetitive", "collection"])
+def test_suffix_lcp_arrays_and_doc_array(rng, kind):
+    from mumemto_tpu import engine as jax_engine
+    if kind == "random":
+        body = rng.integers(65, 91, 300).astype(np.uint8)
+    elif kind == "repetitive":
+        body = np.tile(rng.integers(65, 69, 30).astype(np.uint8), 40)
+    else:
+        body = _direct_text(rng, base_len=300)[0]
+        body = body[:np.flatnonzero(body)[-1] + 1]
+    text = np.zeros(jax_engine.pad_size(body.size), np.uint8)
+    text[:body.size] = body
+    want = jax_suffix.suffix_lcp_arrays(text)
+    got = t_suffix.suffix_lcp_arrays(_t(text))
+    for g, w in zip(got, want):
+        assert g.dtype == _t(np.asarray(w)).dtype
+        assert (g.numpy() == np.asarray(w)).all()
+    ends = np.sort(rng.choice(np.arange(1, body.size), 3, replace=False))
+    da_t = t_suffix.doc_array(got[0], _t(ends.astype(np.int64)), 3)
+    da_j = jax_suffix.doc_array(want[0], jnp.asarray(ends, jnp.int32), 3)
+    assert (da_t.numpy() == np.asarray(da_j)).all()
+    assert da_t.dtype == torch.int32 and int(da_t.max()) == 3
+
+
+def test_suffix_lcp_arrays_refuses_wide_chars():
+    text = np.zeros(64, np.uint8)
+    text[5] = 200
+    with pytest.raises(ValueError, match="< 127"):
+        t_suffix.suffix_lcp_arrays(_t(text))
