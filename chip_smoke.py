@@ -32,10 +32,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      .athresh with -M -n, .sa/.lcp/.bwt with -A, .dict/.parse with -P,
      -g's .mums and .mems with -f 3) and against mumemto_tpu.oracle.naive
      on tiny collections (.mums with and without N bases, .mems for five
-     k/f/F settings, the -M threshold arrays).
-Every path of phases 5-8 is driven with the kernels' launch counts set to
-0 just before it and read just after; each PFP path (and -P, -A) must have
-launched the KR kernel, and -g, -p and -a must have launched none. The
+     k/f/F settings, the -M threshold arrays);
+ 10. the library, MumemtoM and the OOM fallback: library.mum on phase 5's
+     8 Mbp collection (its arrays must equal phase 5's), library.mem with
+     max_doc_freq=3 (phase 6's count), the oracle-free property checks of
+     phase 5's and phase 6's -f 3 results; the CLI's union run from 8
+     FASTAs, then MumemtoM runs of 2 partitions, anchor and string merged,
+     whose MUM sets must equal the union's except for MUMs that touch a
+     document's first or last base (counted); the CLI under a device
+     memory cap between the union's and the largest partition's peak,
+     which must hit a real torch.cuda.OutOfMemoryError, fall back to
+     partitions and give the anchor-merged set; and the merge
+     subcommand's files at 1 Mbp on cuda against --device cpu.
+Every path of phases 5-8 and 10 is driven with the kernels' launch counts
+set to 0 just before it and read just after; each PFP path (and -P, -A,
+and every path of phase 10) must have launched the KR kernel, and -g, -p
+and -a must have launched none. The
 line before the last is the kernels' JSON record, the last line is
 {"ok": true, "device": {...}}. Everything is also written to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -57,6 +69,7 @@ PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
 PROBE_REPLACES = "tools/mosaic_probe.py:25"
 N_DOCS = 8
 EXPECT_8MBP = 6759  # bench tier match count (README.md, BASELINE.md)
+EXPECT_F3_8MBP = 13522  # -f 3 on the same input (native/baseline_cpu)
 
 
 def log(*a):
@@ -438,9 +451,9 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     return entry, res
 
 
-def phase_end_to_end(torch, report) -> bytes:
+def phase_end_to_end(torch, report):
     """Strict multi-MUMs at 8 and 32 Mbp (windowed scan, cap 16); returns
-    the 8 Mbp .mums bytes."""
+    the 8 Mbp result."""
     from mumemto_tpu import options
     report["e2e"] = {}
     for mbp in (8, 32):
@@ -451,21 +464,25 @@ def phase_end_to_end(torch, report) -> bytes:
             if entry["matches"] != EXPECT_8MBP:
                 raise AssertionError(f"8 Mbp: {entry['matches']} matches, "
                                      f"expected {EXPECT_8MBP}")
-            mums_8mbp = res.output_bytes()
-    return mums_8mbp
+            res_8mbp = res
+    return res_8mbp
 
 
 def phase_mem(torch, report):
     """Multi-MEMs: -f 3 (cap 32, windowed with the global prev-same-doc
-    chain) at 8 and 32 Mbp, -f 0 -F 0 (uncapped) at 8 Mbp."""
+    chain) at 8 and 32 Mbp, -f 0 -F 0 (uncapped) at 8 Mbp; returns the
+    -f 3 8 Mbp result."""
     from mumemto_tpu import options
     report["mem"] = {}
     for f, mbp in ((3, 8), (0, 8), (3, 32)):
         opts = options.normalize(N_DOCS, rare_freq=f, max_mem_freq=0,
                                  quiet=True)
-        report["mem"][f"f{f} {mbp}mbp"] = _drive(
-            torch, f"mem -f {f} -F 0 {mbp} Mbp", _bench_rb(mbp), opts,
-            mbp)[0]
+        entry, res = _drive(torch, f"mem -f {f} -F 0 {mbp} Mbp",
+                            _bench_rb(mbp), opts, mbp)
+        report["mem"][f"f{f} {mbp}mbp"] = entry
+        if (f, mbp) == (3, 8):
+            res_f3 = res
+    return res_f3
 
 
 def phase_walk(torch, report):
@@ -722,6 +739,236 @@ def phase_bytes(torch, report):
     report["bytes"] = {"1mbp_cuda_eq_cpu": same, "oracle": checked}
 
 
+def _kr_used(label, launches):
+    """A path of the slice must have launched the KR kernel, and nothing
+    of it the probe kernel."""
+    if launches["kr_break_mask"] < 1 or launches["add_one"]:
+        raise AssertionError(f"{label}: kernel launches {launches}")
+
+
+def _write_fastas(docs, tmp):
+    paths = []
+    for i, fwd in enumerate(docs):
+        path = os.path.join(tmp, f"d{i}.fa")
+        with open(path, "wb") as fh:
+            fh.write(b">d%d\n" % i + fwd.tobytes() + b"\n")
+        paths.append(path)
+    return paths
+
+
+def _mums_set(path, num_docs):
+    """The .mums file as a set of (length, offsets, strands) records."""
+    from mumemto_tpu import formats
+    L, S, T = formats.parse_mums(path, num_docs)
+    return {(int(l), tuple(s.tolist()), tuple(t.tolist()))
+            for l, s, t in zip(L, S, T)}
+
+
+def _touches_terminal(rec, doc_lens) -> bool:
+    """A MUM some occurrence of which holds its doc's first or last base
+    or crosses its '$' (forward coordinates [off, off + L))."""
+    length, offs, _ = rec
+    return any(o == 0 or o + length >= dl
+               for o, dl in zip(offs, doc_lens) if o >= 0)
+
+
+def _partition_spy(torch, mumemtom, kr_mask, parts):
+    """A scan_partition that records each partition's docs, seconds, KR
+    launches and peak device memory (allocated and reserved, from an
+    emptied cache) in `parts`."""
+    real = mumemtom.scan_partition
+
+    def scan(files, pfx, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = kr_mask.launches
+        t0 = time.perf_counter()
+        out = real(files, pfx, **kw)
+        torch.cuda.synchronize()
+        parts.append({"docs": len(files), "s": time.perf_counter() - t0,
+                      "kr_launches": kr_mask.launches - before,
+                      "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+                      "peak_reserved_bytes":
+                          torch.cuda.max_memory_reserved()})
+        return out
+    return real, scan
+
+
+def phase_slice(torch, report, res_8mbp, res_f3):
+    """The library, MumemtoM and the OOM fallback on the 8 Mbp bench
+    collection, and the merge subcommand's bytes at 1 Mbp (cuda against
+    cpu). Each path's kernel launches are counted around it."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import bench
+    from mumemto_tpu_torch import cli, library, properties
+    from mumemto_tpu_torch.kernels import kr_mask
+    from mumemto_tpu_torch.parallel import mumemtom
+    out = {"paths": {}}
+    docs = bench.synth_collection(8, N_DOCS, seed=0, snp_rate=0.001)
+    seqs = [[fwd.tobytes()] for fwd in docs]
+    lib, s, lm = _counted(torch, lambda: library.mum(seqs, device="cuda"))
+    same = (np.array_equal(lib.match_lengths, res_8mbp.lengths)
+            and np.array_equal(lib.offsets, res_8mbp.offsets)
+            and np.array_equal(lib.strands, res_8mbp.strands > 0))
+    out["library.mum"] = {"s": s, "matches": len(lib), "launches": lm,
+                          "arrays_equal_phase5": same}
+    lib_m, s, lmm = _counted(torch, lambda: library.mem(
+        seqs, max_doc_freq=3, device="cuda"))
+    out["library.mem -f 3"] = {"s": s, "matches": len(lib_m),
+                               "launches": lmm}
+    log(f"[slice] library.mum {json.dumps(out['library.mum'])}")
+    log(f"[slice] library.mem {json.dumps(out['library.mem -f 3'])}")
+    if len(lib) != EXPECT_8MBP or not same:
+        raise AssertionError("library.mum 8 Mbp != the main path's result")
+    if len(lib_m) != EXPECT_F3_8MBP:
+        raise AssertionError(f"library.mem -f 3: {len(lib_m)} matches, "
+                             f"expected {EXPECT_F3_8MBP}")
+    rb = _bench_rb(8)
+    t0 = time.perf_counter()
+    n_mum = properties.check_mum_properties(res_8mbp, rb, max_checked=200)
+    n_mem = properties.check_mem_properties(res_f3, rb, max_checked=200)
+    out["properties"] = {"mums_checked": n_mum, "mems_checked": n_mem,
+                         "s": time.perf_counter() - t0}
+    log(f"[slice] properties: {json.dumps(out['properties'])}")
+    out["paths"].update({"library.mum": lm, "library.mem": lmm})
+
+    doc_lens = [int(d.size) for d in docs]
+    with tempfile.TemporaryDirectory() as tmp:
+        fastas = _write_fastas(docs, tmp)
+        union = os.path.join(tmp, "union")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rc, s, lu = _counted(torch, lambda: cli.main(
+            fastas + ["-o", union]))
+        peak_union = torch.cuda.max_memory_allocated()
+        want = _mums_set(union + ".mums", N_DOCS)
+        out["union"] = {"rc": rc, "s": s, "launches": lu,
+                        "matches": len(want), "peak_alloc_bytes": peak_union}
+        log(f"[slice] cli union: {json.dumps(out['union'])}")
+        if rc != 0 or len(want) != EXPECT_8MBP:
+            raise AssertionError("cli union 8 Mbp failed")
+        out["paths"]["cli union"] = lu
+        merged = {}
+        for anchor in (True, False):
+            label = "mumemtom " + ("anchor" if anchor else "string")
+            parts = []
+            real, spy = _partition_spy(torch, mumemtom, kr_mask, parts)
+            mumemtom.scan_partition = spy
+            try:
+                path, s, lp = _counted(
+                    torch, lambda: mumemtom.run_partitioned_files(
+                        fastas, os.path.join(tmp, label.split()[1]),
+                        num_partitions=2, anchor=anchor, device="cuda"))
+            finally:
+                mumemtom.scan_partition = real
+            got = _mums_set(path, N_DOCS)
+            diff = want ^ got
+            terminal = [r for r in diff if _touches_terminal(r, doc_lens)]
+            merged[anchor] = got
+            out[label] = {"s": s, "launches": lp, "partitions": parts,
+                          "merge_kr_launches": lp["kr_break_mask"] - sum(
+                              p["kr_launches"] for p in parts),
+                          "matches": len(got), "only_union": len(want - got),
+                          "only_merged": len(got - want),
+                          "terminal_touching_differences": len(terminal),
+                          "union_terminal_touching": sum(
+                              _touches_terminal(r, doc_lens) for r in want)}
+            log(f"[slice] {label} 8 Mbp: {json.dumps(out[label])}")
+            if len(terminal) != len(diff) or any(p["kr_launches"] < 1
+                                                 for p in parts):
+                raise AssertionError(f"{label}: {len(diff) - len(terminal)} "
+                                     "MUMs differ from the union's away "
+                                     "from the terminators")
+            out["paths"][label] = lp
+
+        # the OOM fallback: a cap between the union's and the largest
+        # partition's peak, so the union scan fails and partitions fit
+        anchor_parts = out["mumemtom anchor"]["partitions"]
+        part_alloc = max(p["peak_alloc_bytes"] for p in anchor_parts)
+        part_reserved = max(p["peak_reserved_bytes"] for p in anchor_parts)
+        lo = part_reserved if part_reserved < peak_union else part_alloc
+        if not lo < peak_union:
+            raise AssertionError(
+                f"no memory cap separates the largest partition's peak "
+                f"({part_alloc} B) from the union's ({peak_union} B)")
+        cap = int(lo + 0.6 * (peak_union - lo))
+        total = torch.cuda.get_device_properties(0).total_memory
+        seen = []
+        real_is = cli._is_device_oom
+
+        def is_oom(e):
+            seen.append(type(e).__name__)
+            return real_is(e)
+        oom_out = os.path.join(tmp, "oom")
+        err = io.StringIO()
+        torch.cuda.empty_cache()
+        ooms0 = torch.cuda.memory_stats().get("num_ooms", 0)
+        cli._is_device_oom = is_oom
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            with contextlib.redirect_stderr(err):
+                rc, s, lf = _counted(torch, lambda: cli.main(
+                    fastas + ["-o", oom_out]))
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            cli._is_device_oom = real_is
+        ooms = torch.cuda.memory_stats().get("num_ooms", 0) - ooms0
+        got = _mums_set(oom_out + ".mums", N_DOCS) if rc == 0 else set()
+        out["oom fallback"] = {
+            "rc": rc, "s": s, "launches": lf, "cap_bytes": cap,
+            "union_peak_alloc_bytes": peak_union,
+            "partition_peak_alloc_bytes": part_alloc,
+            "partition_peak_reserved_bytes": part_reserved,
+            "allocator_ooms": ooms, "errors_seen": seen,
+            "two_partitions": "retrying as 2 MumemtoM" in err.getvalue()
+            and "retrying as 4" not in err.getvalue(),
+            "equals_anchor_merge": got == merged[True]}
+        log(f"[slice] OOM fallback: {json.dumps(out['oom fallback'])}")
+        if (rc != 0 or ooms < 1 or "OutOfMemoryError" not in seen
+                or got != merged[True]):
+            raise AssertionError(f"OOM fallback failed: {err.getvalue()}")
+        out["paths"]["oom fallback"] = lf
+
+    # the merge subcommand at 1 Mbp: its files on cuda == on cpu
+    docs1 = bench.synth_collection(1, N_DOCS, seed=1, snp_rate=0.001)
+    out["merge 1mbp"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fastas = _write_fastas(docs1, tmp)
+        for anchor, exts in ((True, (".mums", ".lengths", ".athresh")),
+                             (False, (".mums", ".lengths", ".thresh",
+                                      ".thresh_rev"))):
+            label = "anchor" if anchor else "string"
+            pre = os.path.join(tmp, label)
+            _, s, lp = _counted(torch, lambda: mumemtom.run_partitioned_files(
+                fastas, pre, num_partitions=2, anchor=anchor, device="cuda"))
+            t0 = time.perf_counter()
+            rc = cli.main(["merge", f"{pre}_part0.mums", f"{pre}_part1.mums",
+                           "-o",
+                           pre + "_cpu", "--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+            sizes = {}
+            for ext in exts:
+                with open(pre + ext, "rb") as a, \
+                        open(pre + "_cpu" + ext, "rb") as b:
+                    ga, gb = a.read(), b.read()
+                if rc != 0 or ga != gb or not ga:
+                    raise AssertionError(f"merge 1 Mbp {label}: {ext} on "
+                                         "cuda != cpu")
+                sizes[ext] = len(ga)
+            out["merge 1mbp"][label] = {"s": s, "cpu_merge_s": cpu_s,
+                                        "launches": lp, "sizes": sizes}
+            log(f"[slice] merge 1 Mbp {label}: cuda == cpu "
+                f"{json.dumps(out['merge 1mbp'][label])}")
+            out["paths"][f"merge 1 Mbp {label}"] = lp
+    for label, launches in out["paths"].items():
+        _kr_used(label, launches)
+    report["slice"] = out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "mumemto_tpu_torch")):
         print("chip_smoke: mumemto_tpu_torch not found beside this script; "
@@ -739,11 +986,12 @@ def main() -> int:
     phase_probe(torch, report)
     phase_build(report)
     phase_kernel(torch, report)
-    mums_8mbp = phase_end_to_end(torch, report)
-    phase_mem(torch, report)
+    res_8mbp = phase_end_to_end(torch, report)
+    res_f3 = phase_mem(torch, report)
     phase_walk(torch, report)
-    phase_routes(torch, report, mums_8mbp)
+    phase_routes(torch, report, res_8mbp.output_bytes())
     phase_bytes(torch, report)
+    phase_slice(torch, report, res_8mbp, res_f3)
     if "jax" in sys.modules:
         raise AssertionError("chip_smoke imported jax")
     report["total_s"] = time.perf_counter() - t_all
@@ -755,6 +1003,7 @@ def main() -> int:
     for label in ("-P", "-p", "-A", "-a"):
         report["path_launches"][label] = report["routes"][
             "-P -p" if label in ("-P", "-p") else "-A -a"][label + "_launches"]
+    report["path_launches"].update(report["slice"]["paths"])
     pr = report["probe"]
     kernels = {"kernels": [{
         "name": "kr_break_mask", "route": "cuda", "source": KR_SOURCE,

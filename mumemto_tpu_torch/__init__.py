@@ -8,8 +8,19 @@ The package imports torch and never jax.
 
 Entry points:
     python -m mumemto_tpu_torch a.fa b.fa ... -o out [--device cuda]
+    python -m mumemto_tpu_torch merge|viz|collinear|... (the subcommands)
+    mum(sequences, ..., device="cuda"), mem(sequences, ..., device="cuda")
     mumemto_tpu_torch.engine.find_matches(rb, opts, device="cuda")
+    mumemto_tpu_torch.parallel.mumemtom.run_partitioned_files(files, out)
     python -m mumemto_tpu_torch.kernels.probe [timeout_s]
 """
 
 __version__ = "1.4.0"
+
+
+def __getattr__(name):
+    # lazy: importing the package loads neither the engine nor torch
+    if name in ("mum", "mem", "MumResult", "MemResult"):
+        from mumemto_tpu_torch import library
+        return getattr(library, name)
+    raise AttributeError(name)

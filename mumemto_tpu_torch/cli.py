@@ -7,23 +7,25 @@ in the reference) plus --device, and writes PREFIX.lengths and PREFIX.mums
 (.mems with -f != 1, .bumbl with -b), plus .thresh/.thresh_rev with -M or
 .athresh with -M -n, and .sa/.lcp/.bwt with -A. -P writes .dict/.parse
 and stops; -p resumes from them, -a replays .sa/.lcp/.bwt files, -g runs
-the direct backend. --seq-shards and the subcommands are not ported yet
-and fail with a "not yet ported" error instead of being ignored.
+the direct backend. `merge` runs the port's analysis/merge, every other
+subcommand the JAX package's jax-free analysis dispatcher. A CUDA
+out-of-memory error on a strict multi-MUM run over >= 3 files is retried
+as MumemtoM partitions on the same device. --seq-shards is not ported
+yet and fails with a "not yet ported" error instead of being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import sys
 import time
 
 import numpy as np
+import torch
 
-VERSION = "1.4.0"
-
-SUBCOMMANDS = ("viz", "inversion", "coverage", "collinear", "convert", "view",
-               "extract", "label", "lengths", "merge", "bed", "trim",
-               "density", "tabix", "convert-thresh", "mori")
+# jax-free at import: jax is loaded only inside its build functions
+from mumemto_tpu.cli import SKULL, SUBCOMMANDS, VERSION, read_filelist
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -73,16 +75,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def read_filelist(path: str) -> list:
-    files = []
-    with open(path) as f:
-        for line in f:
-            words = line.split()
-            if words:
-                files.append(words[0])
-    return files
-
-
 def _unported_flags(args) -> list:
     """The given flags whose code paths the port does not have yet."""
     return ["--seq-shards"] if args.seq_shards != 0 else []
@@ -95,6 +87,51 @@ def _options(args, rb):
         num_distinct_docs=args.num_distinct_docs, rare_freq=args.rare_freq,
         max_mem_freq=args.max_mem_freq, use_revcomp=args.use_rcomp,
         merge=args.merge, anchor_merge=args.anchor_merge, binary=args.binary)
+
+
+def _is_device_oom(e: Exception) -> bool:
+    """A CUDA out-of-memory error (not "CUDA is not available")."""
+    return (isinstance(e, torch.cuda.OutOfMemoryError)
+            or "CUDA out of memory" in str(e))
+
+
+def _fallback_eligible(opts, files) -> bool:
+    """A run the partition fallback reproduces exactly: strict multi-MUMs
+    over >= 3 input files, no merge metadata, no .bumbl."""
+    return bool(opts.mum_mode and opts.num_distinct == len(files)
+                and not opts.merge and not opts.binary
+                and files and len(files) >= 3)
+
+
+def _oom_partition_fallback(args, files, device) -> int:
+    """Device OOM during the union scan: rerun as MumemtoM partitions +
+    anchor merge on the same device (README.md:124-142 in the reference),
+    doubling the partition count while partitions still run out of
+    memory. merge(partitions) == run-on-union is the tested invariant."""
+    from mumemto_tpu_torch.parallel import mumemtom
+    nparts = 2
+    while nparts <= max(2, len(files) - 1):
+        print(f"[build_main] device OOM on the union scan — retrying as "
+              f"{nparts} MumemtoM partitions + anchor merge", file=sys.stderr)
+        # the failed scan's tensors are garbage now; hand its cached
+        # blocks back, or the caching allocator keeps holding them
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            mumemtom.run_partitioned_files(
+                files, args.output_prefix, num_partitions=nparts,
+                anchor=True, min_match_len=args.min_match_len,
+                use_revcomp=args.use_rcomp, device=device)
+        except Exception as e:
+            if not _is_device_oom(e):
+                raise
+            nparts *= 2
+            continue
+        print("[build_main] partitioned fallback succeeded", file=sys.stderr)
+        return 0
+    print("Error: the device ran out of memory even at maximum "
+          "partitioning.", file=sys.stderr)
+    return 137
 
 
 def build_main(argv) -> int:
@@ -163,12 +200,21 @@ def build_main(argv) -> int:
                                   w=args.pfp_w, mod=args.hash_mod)
         return 0
     t0 = time.time()
-    # -A rides the same scan: the index rows are written out of the run
-    # that also emits the matches (pfp_lcp_mum.hpp:323-378)
-    results = engine.find_matches(
-        rb, opts, device=device, pfp_w=args.pfp_w, pfp_mod=args.hash_mod,
-        backend="direct" if args.use_gsacak else "pfp",
-        arrays_out_prefix=args.output_prefix if args.arrays_out else None)
+    try:
+        # -A rides the same scan: the index rows are written out of the
+        # run that also emits the matches (pfp_lcp_mum.hpp:323-378)
+        results = engine.find_matches(
+            rb, opts, device=device, pfp_w=args.pfp_w, pfp_mod=args.hash_mod,
+            backend="direct" if args.use_gsacak else "pfp",
+            arrays_out_prefix=args.output_prefix if args.arrays_out else None)
+    except Exception as e:
+        if not (_is_device_oom(e) and _fallback_eligible(opts, files)):
+            raise
+        results = None
+    if results is None:
+        # outside the handler: the traceback, and with it the failed
+        # scan's tensors, is released first
+        return _oom_partition_fallback(args, files, device)
     print(f"[build_main] match scan finished on {device} "
           f"({time.time() - t0:.2f}s)", file=sys.stderr)
     engine.write_outputs(results, rb, args.output_prefix)
@@ -183,17 +229,38 @@ def build_main(argv) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "mori":
+        print(SKULL)
+        return 0
+    if argv and argv[0] == "--version":
+        print(VERSION)
+        return 0
+    if argv and argv[0] == "merge":
+        from mumemto_tpu_torch.analysis import merge
+        return merge.run(argv[1:])
     if argv and argv[0] in SUBCOMMANDS:
-        print(f"Error: the '{argv[0]}' subcommand is not yet ported to "
-              "mumemto_tpu_torch (see ROADMAP.md; use python -m mumemto_tpu "
-              f"{argv[0]})", file=sys.stderr)
-        return 2
+        from mumemto_tpu.analysis import dispatch
+        return dispatch.run(argv[0], argv[1:])
     from mumemto_tpu import options
     try:
         return build_main(argv)
     except (options.InputError, FileNotFoundError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    except MemoryError:
+        # out-of-memory heuristic of the reference wrapper
+        # (mumemto/mumemto:19-21: SIGKILL -> OOM message)
+        print("Error: mumemto ran out of memory. Try a smaller collection, "
+              "partitioned runs (mumemto -M per partition + mumemto merge), "
+              "or a machine/device with more memory.", file=sys.stderr)
+        return 137
+    except Exception as e:
+        if _is_device_oom(e):
+            print("Error: the device ran out of memory during the scan. "
+                  "Partition the collection (mumemto -M per partition + "
+                  "mumemto merge).", file=sys.stderr)
+            return 137
+        raise
 
 
 if __name__ == "__main__":

@@ -18,13 +18,16 @@ must be equal.
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 from collections.abc import Sequence as _Sequence
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from mumemto_tpu import formats
+from mumemto_tpu import formats, progress
 from mumemto_tpu.options import MatchOptions
 from mumemto_tpu_torch.device import resolve
 from mumemto_tpu_torch.ops import intervals as ops_intervals
@@ -122,10 +125,47 @@ def _doc_metadata(rb, opts):
     return doc_offsets, doc_lens
 
 
+# the port's phase names -> the progress bar's stage names
+# (mumemto_tpu.progress._STAGES, named after the JAX package's phases)
+PROGRESS_STAGE = {
+    "build_pfp": "build_pfp", "read_parse": "build_pfp",
+    "dict_index": "dict_index", "suffix_array": "dict_index",
+    "parse_side": "parse_side", "lcp": "parse_side",
+    "expand_sort_analyze": "expand_analyze", "analyze": "expand_analyze",
+    "arrays_out": "arrays_out", "compact": "compact_readback",
+    "emit": "emit_mums", "merge": "emit_mums",
+}
+
+
+def _phase_logger(dev: torch.device):
+    """The default phase hook. MUMEMTO_TPU_PROFILE=1 prints each stage's
+    wall time to stderr, and an active progress bar advances; each stage is
+    then synchronized with the device first, so the times are the
+    device's. With neither it is the no-op, which adds no syncs."""
+    prof = bool(os.environ.get("MUMEMTO_TPU_PROFILE"))
+    bar = progress.active()
+    if not prof and bar is None:
+        return ops_pfp._noop_phase
+    state = {"t": time.time()}
+
+    def log(name):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.time()
+        if prof:
+            print(f"[pfp_scan] {name}: {now - state['t']:.2f}s",
+                  file=sys.stderr, flush=True)
+        if bar is not None:
+            bar.advance(PROGRESS_STAGE.get(name, name))
+        state["t"] = now
+    return log
+
+
 def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
                  pfp_mod: int = 100, phase=None, backend: str = "pfp",
                  parse_prefix: str | None = None,
-                 arrays_out_prefix: str | None = None) -> MatchResults:
+                 arrays_out_prefix: str | None = None,
+                 show_progress: bool = True) -> MatchResults:
     """Multi-MUMs or multi-MEMs of one collection on `device`, plus the
     merge metadata when opts.merge.
 
@@ -135,13 +175,28 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
     arrays_out_prefix: also write .sa/.lcp/.bwt files from the same scan
     (-A). `phase(name)` is called after each stage (PFP: build_pfp or
     read_parse, dict_index, parse_side, expand_sort_analyze; direct:
-    suffix_array, lcp, analyze; then arrays_out, compact, emit, merge)."""
+    suffix_array, lcp, analyze; then arrays_out, compact, emit, merge);
+    without one, _phase_logger's hook is. show_progress: draw the phase
+    bar when progress.enabled() (library callers pass False)."""
     dev = resolve(device)
+    # try/finally: a raising scan must not leak the module-global bar
+    bar = progress.activate() if show_progress else None
+    try:
+        return _find_matches_inner(
+            rb, opts, dev, pfp_w, pfp_mod,
+            phase if phase is not None else _phase_logger(dev), backend,
+            parse_prefix, arrays_out_prefix)
+    finally:
+        if bar is not None:
+            progress.deactivate()
+
+
+def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
+                        parse_prefix, arrays_out_prefix):
     size_cap = interval_size_cap(opts, rb.num_docs)
     if parse_prefix:
         pfp = ops_pfp.pfp_from_parse_files(parse_prefix, dev, w=pfp_w)
-        if phase is not None:
-            phase("read_parse")
+        phase("read_parse")
         res, counts, n = ops_pfp.pfp_scan(
             pfp, rb.doc_ends, rb.num_docs, opts.min_match_len,
             opts.num_distinct, opts.max_total_freq, opts.max_doc_freq,
@@ -172,8 +227,7 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
     n_emit, n_cand, n_runs = (int(x) for x in counts.cpu())
     if arrays_out_prefix:
         _write_arrays_from_res(res, arrays_out_prefix, rb.num_docs)
-        if phase is not None:
-            phase("arrays_out")
+        phase("arrays_out")
 
     results = MatchResults(opts=opts, num_docs=rb.num_docs)
     results.bwt_runs = n_runs
@@ -188,8 +242,7 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
         W = rb.num_docs  # distinct docs => window size <= N
         s, e, L, w_sa, w_da = _to_host(ops_pipeline.compact_windows_mum(
             res, n, M, W, rb.num_docs))
-        if phase is not None:
-            phase("compact")
+        phase("compact")
         valid = (s[:m, None] + np.arange(W)) < e[:m, None]
         _emit_mums(results, s[:m], e[:m], L[:m], w_sa[:m],
                    w_da[:m].astype(np.int32), valid, opts,
@@ -202,8 +255,7 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
         W = ops_pipeline.bucket(maxw, lo=8)
         s, e, L, w_sa, w_da, w_prev = _to_host(
             ops_pipeline.compact_windows_mem(res, n, M, W, rb.num_docs))
-        if phase is not None:
-            phase("compact")
+        phase("compact")
         valid = (s[:m, None] + np.arange(W)) < e[:m, None]
         w_da = w_da.astype(np.int32)
         # deferred distinct-count (check_doc_range unique >= k,
@@ -213,8 +265,7 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
         _emit_mems(results, s[:m][keep], e[:m][keep], L[:m][keep],
                    w_sa[:m][keep], w_da[:m][keep], valid[keep],
                    opts, doc_offsets, doc_lens)
-    if phase is not None:
-        phase("emit")
+    phase("emit")
 
     if opts.merge:
         Mc = ops_pipeline.bucket(n_cand)
@@ -223,8 +274,7 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
         _merge_thresholds(results, has0[:n_cand], sa_first0[:n_cand],
                           prev_ctx[:n_cand], next_ctx[:n_cand],
                           doc_offsets, doc_lens)
-        if phase is not None:
-            phase("merge")
+        phase("merge")
     return results
 
 

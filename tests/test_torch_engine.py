@@ -257,24 +257,54 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, argv):
     assert not os.path.exists(str(tmp_path / "o.mums"))
 
 
-def test_cli_refuses_subcommands(capsys):
-    assert t_cli.main(["viz", "-m", "x.mums"]) == 2
+def test_cli_refuses_subcommands(tmp_path, capsys):
+    """The subcommands are ported; what is still refused (exit 2, "not
+    yet ported") is merge --collective and --seq-shards."""
+    assert t_cli.main(["merge", "a.mums", "b.mums", "--collective"]) == 2
+    assert "not yet ported" in capsys.readouterr().err
+    assert t_cli.main(["g.fa", "-o", str(tmp_path / "o"),
+                       "--seq-shards", "4"]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
 
-def test_port_never_imports_jax():
+_NO_JAX = ("assert 'jax' not in sys.modules, sorted("
+           "m for m in sys.modules if m.startswith('jax'))")
+
+
+def test_port_never_imports_jax(rng, tmp_path):
     code = ("import sys; import mumemto_tpu_torch, mumemto_tpu_torch.engine,"
             " mumemto_tpu_torch.cli, mumemto_tpu_torch.convert,"
             " mumemto_tpu_torch.device,"
             " mumemto_tpu_torch.kernels.kr_mask, mumemto_tpu_torch.kernels.build,"
             " mumemto_tpu_torch.kernels.probe, mumemto_tpu_torch.ops.pipeline,"
             " mumemto_tpu_torch.ops.suffix, mumemto_tpu_torch.ops.pfp,"
-            " mumemto_tpu_torch.ops.intervals;"
-            " assert 'jax' not in sys.modules, sorted("
-            "m for m in sys.modules if m.startswith('jax'))")
+            " mumemto_tpu_torch.ops.intervals, mumemto_tpu_torch.library,"
+            " mumemto_tpu_torch.properties, mumemto_tpu_torch.analysis.merge,"
+            " mumemto_tpu_torch.parallel.mumemtom; " + _NO_JAX)
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
+    # python -m mumemto_tpu_torch mori / view / merge (anchor)
+    paths = _write_fastas(tmp_path, _docs(rng, 3, False, False))
+    pre = [str(tmp_path / "p0"), str(tmp_path / "p1")]
+    for part, p in zip(([paths[0], paths[1]], [paths[0], paths[2]]), pre):
+        assert t_cli.main(part + ["-o", p, "-M", "-n", "--device", "cpu"]) == 0
+    bumbl = str(tmp_path / "all")
+    assert t_cli.main(paths + ["-o", bumbl, "-b", "--device", "cpu"]) == 0
+    as_module = ("import runpy, sys\n"
+                 "try:\n"
+                 "    runpy.run_module('mumemto_tpu_torch', run_name='__main__')\n"
+                 "except SystemExit as e:\n"
+                 "    rc = e.code\n" + _NO_JAX + "\nsys.exit(rc)\n")
+    for argv in (["mori"], ["view", bumbl + ".bumbl"],
+                 ["merge", pre[0] + ".mums", pre[1] + ".mums", "-o",
+                  str(tmp_path / "merged")]):
+        run = subprocess.run([sys.executable, "-c", as_module, *argv],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        assert run.returncode == 0, (argv, run.stderr)
+        assert run.stdout or argv[0] == "merge", argv
+    assert os.path.getsize(str(tmp_path / "merged.mums")) > 0
 
 
 def test_resolve_cuda_without_card_raises(monkeypatch):
