@@ -13,8 +13,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
   3. build every CUDA kernel from the sources in this checkout, one nvcc
      per source, all started together;
   4. the KR break-mask kernel against its plain PyTorch version on the card
-     (mask and count exactly equal), with CUDA-event timings;
-  5. the main path end to end on the bench input (bench.synth_collection,
+     (mask and count exactly equal) over w, mod, ne, all-255 bytes and
+     misaligned views, with CUDA-event timings on the 8 and 32 Mbp ext
+     arrays beside the memory bound (share of it, bytes per second);
+  5. the main path end to end on the bench input (_synth_collection,
      8 docs, 0.1% SNP, revcomp, strict multi-MUMs) at 8 and 32 Mbp: stage
      times, Mbp/s, peak device memory, and the match count against a live
      run of native/baseline_cpu;
@@ -30,7 +32,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
   9. output bytes on the card against the port's CPU path at 1 Mbp (.mums,
      .mems with -f 3, .bumbl with -b, .thresh/.thresh_rev with -M,
      .athresh with -M -n, .sa/.lcp/.bwt with -A, .dict/.parse with -P,
-     -g's .mums and .mems with -f 3) and against mumemto_tpu.oracle.naive
+     -g's .mums and .mems with -f 3) and against the port's oracle.naive
      on tiny collections (.mums with and without N bases, .mems for five
      k/f/F settings, the -M threshold arrays);
  10. the library, MumemtoM and the OOM fallback: library.mum on phase 5's
@@ -50,13 +52,15 @@ and every path of phase 10) must have launched the KR kernel, and -g, -p
 and -a must have launched none. The
 line before the last is the kernels' JSON record, the last line is
 {"ok": true, "device": {...}}. Everything is also written to
-chiprun_out/chip_smoke.json. Imports nothing of JAX.
+chiprun_out/chip_smoke.json. Imports nothing of JAX and nothing of the
+JAX package, mumemto_tpu; native/baseline_cpu is run as a program.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -67,6 +71,7 @@ KR_SOURCE = "mumemto_tpu_torch/kernels/csrc/kr_mask.cu"
 KR_REPLACES = "mumemto_tpu/ops/pallas_kernels.py:103"
 PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
 PROBE_REPLACES = "tools/mosaic_probe.py:25"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the data sheet's peak)
 N_DOCS = 8
 EXPECT_8MBP = 6759  # bench tier match count (README.md, BASELINE.md)
 EXPECT_F3_8MBP = 13522  # -f 3 on the same input (native/baseline_cpu)
@@ -114,12 +119,63 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bench_rb(mbp: float, seed: int = 0, n_docs: int = N_DOCS):
-    """bench.py's collection and RefBuilder at `mbp` Mbp."""
+def _synth_collection(total_mbp: float, n_docs: int, seed: int = 0,
+                      snp_rate: float = 0.001):
+    """The bench collection (the same bytes as bench.py's synth_collection
+    for the same arguments): n_docs mutated copies of one random base
+    sequence, ~total_mbp Mbp in all before revcomp, 0.1% SNPs by default
+    (the pairwise divergence of human haplotypes)."""
     import numpy as np
-    import bench
-    from mumemto_tpu.refbuilder import RefBuilder, revcomp
-    docs = bench.synth_collection(mbp, n_docs, seed=seed, snp_rate=0.001)
+    rng = np.random.default_rng(seed)
+    base_len = int(total_mbp * 1e6 / n_docs)
+    base = rng.integers(0, 4, base_len, dtype=np.int8)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    docs = []
+    for _ in range(n_docs):
+        s = base.copy()
+        n_mut = max(1, int(base_len * snp_rate))
+        pos = rng.integers(0, base_len, n_mut)
+        s[pos] = (s[pos] + rng.integers(1, 4, n_mut)) % 4
+        docs.append(acgt[s])
+    return docs
+
+
+def _run_cpu_baseline(text, seq_lengths, opts, mbp):
+    """(Mbp/s, matches) of one run of native/baseline_cpu, the single-core
+    C++ SA-IS + Kasai + LCP-interval scan, on the same input; the binary
+    is built first by native/build_baseline.py when missing or stale."""
+    import tempfile
+    built = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "native", "build_baseline.py")],
+        capture_output=True, text=True, timeout=600)
+    if built.returncode != 0:
+        raise AssertionError(f"native/baseline_cpu did not build: "
+                             f"{built.stdout} {built.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory() as td:
+        tf = os.path.join(td, "text.bin")
+        lf = os.path.join(td, "lens.txt")
+        with open(tf, "wb") as f:
+            f.write(text.tobytes())
+        with open(lf, "w") as f:
+            f.write("".join(f"{n}\n" for n in seq_lengths))
+        out = subprocess.run(
+            [os.path.join(ROOT, "native", "baseline_cpu"), tf, lf,
+             str(opts.min_match_len), str(opts.num_distinct),
+             str(opts.max_doc_freq), str(opts.max_total_freq),
+             str(int(opts.no_max_freq)), str(int(opts.use_revcomp)), "1"],
+            capture_output=True, text=True, timeout=3600)
+    if out.returncode != 0:
+        raise AssertionError(f"native/baseline_cpu failed: "
+                             f"{out.stderr[-2000:]}")
+    r = json.loads(out.stdout)
+    return mbp / r["t_total"], r["matches"]
+
+
+def _bench_rb(mbp: float, seed: int = 0, n_docs: int = N_DOCS):
+    """The bench collection as a RefBuilder at `mbp` Mbp."""
+    import numpy as np
+    from mumemto_tpu_torch.refbuilder import RefBuilder, revcomp
+    docs = _synth_collection(mbp, n_docs, seed=seed)
     pieces, seq_lengths = [], []
     dollar = np.frombuffer(b"$", dtype=np.uint8)
     for fwd in docs:
@@ -212,6 +268,10 @@ def phase_probe(torch, report):
     tile = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     tile_t = _turns(torch, lambda: probe.add_one(tile),
                     lambda: probe.add_one_plain(tile), 500, 5)
+    # the one PyTorch call for the same function, timed for the kernels line
+    # only: the port calls it nowhere
+    library_ms = statistics.median(
+        _event_ms(torch, lambda: torch.add(tile, 1), 500) for _ in range(5))
     gb = 2 * big.numel() * 4 / 1e9  # bytes read + written per call
     big_t = _turns(torch, lambda: probe.add_one(big),
                    lambda: probe.add_one_plain(big), 20, 3)
@@ -222,10 +282,11 @@ def phase_probe(torch, report):
                        "stdout": run.stdout.strip(), "device": name,
                        "launches": launches, "max_abs_err": max_err,
                        "cases": [c[0] for c in cases], "shape": [8, 128],
-                       **tile_t, "2^26": big_t,
+                       **tile_t, "library_ms": library_ms, "2^26": big_t,
                        "host_split_us": _host_split(torch, probe, tile)}
     log(f"[probe] add_one == plain on {len(cases)} cases; (8, 128) median "
-        f"kernel {tile_t['ms']:.5f} ms, plain {tile_t['plain_ms']:.5f} ms "
+        f"kernel {tile_t['ms']:.5f} ms, plain {tile_t['plain_ms']:.5f} ms, "
+        f"torch.add {library_ms:.5f} ms "
         f"({json.dumps(tile_t)})")
     log(f"[probe] 2^26 int32: median kernel {big_t['ms']:.4f} ms "
         f"({big_t['gb_per_s']:.1f} GB/s), plain {big_t['plain_ms']:.4f} ms "
@@ -238,7 +299,6 @@ def _turns(torch, kernel, plain, reps: int, rounds: int) -> dict:
     """CUDA-event ms per call of kernel and plain, timed in turns (kernel,
     plain, plain, kernel) for `rounds` rounds of `reps` calls each; the
     medians and every run."""
-    import statistics
     runs = {"kernel": [], "plain": []}
     for _ in range(rounds):
         for name in ("kernel", "plain", "plain", "kernel"):
@@ -326,7 +386,7 @@ def phase_build(report):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.build, names))
-    kr_mask._kernel()
+    kr_mask.launcher()
     probe._kernel()
     report["build_s"] = time.perf_counter() - t0
     report["kernel_sources"] = names
@@ -335,52 +395,81 @@ def phase_build(report):
 
 
 def phase_kernel(torch, report):
-    """Kernel vs plain on the card: exact mask and count."""
+    """Kernel vs plain on the card: exact mask and count on a grid of w,
+    mod, ne and byte values and on misaligned views; then timings on the
+    real 8 and 32 Mbp ext arrays beside the memory bound (ext read once,
+    the mask written once, over HBM_BYTES_PER_S)."""
     import numpy as np
     from mumemto_tpu_torch.kernels import kr_mask
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     acgt = np.frombuffer(b"ACGT", np.uint8)
 
-    def synth(ne, n_text, w, random_bytes=False):
+    def synth(ne, n_text, w, kind):
         ext = np.zeros(ne, np.uint8)
         ext[0] = 2
-        body = (rng.integers(0, 256, n_text).astype(np.uint8) if random_bytes
-                else acgt[rng.integers(0, 4, n_text)])
+        if kind == "acgt":
+            body = acgt[rng.integers(0, 4, n_text)]
+        elif kind == "ff":  # the largest partial sums
+            body = np.full(n_text, 255, np.uint8)
+        else:
+            body = rng.integers(0, 256, n_text).astype(np.uint8)
         ext[1:n_text + 1] = body
         ext[n_text + 1:n_text + 1 + w] = 2
         return torch.from_numpy(ext).to(dev)
 
-    cases = [("acgt 2^24", 1 << 24, (1 << 24) - 64, 10, False),
-             ("acgt 2^26", 1 << 26, (1 << 26) - 64, 10, False),
-             ("random bytes 2^20", 1 << 20, (1 << 20) - 40, 10, True),
-             ("odd ne", 300001, 299000, 10, True),
-             ("small ne", 1000, 700, 10, False),
-             ("n_text < w", 64, 5, 10, False),
-             ("w=4", 77777, 70000, 4, False),
-             ("w=16", 77777, 70000, 16, True),
-             ("w=16 mod 7", 4097, 4000, 16, False)]
+    cases = [("acgt 2^24", 1 << 24, (1 << 24) - 64, 10, 100, "acgt"),
+             ("acgt 2^26", 1 << 26, (1 << 26) - 64, 10, 100, "acgt"),
+             ("random bytes 2^20", 1 << 20, (1 << 20) - 40, 10, 100, "bytes"),
+             ("odd ne", 300001, 299000, 10, 100, "bytes"),
+             ("small ne", 1000, 700, 10, 100, "acgt"),
+             ("n_text < w", 64, 5, 10, 100, "acgt"),
+             ("w=4", 77777, 70000, 4, 100, "acgt"),
+             ("w=16", 77777, 70000, 16, 100, "bytes"),
+             ("w=16 mod 7", 4097, 4000, 16, 7, "acgt"),
+             ("w=700", 50021, 45000, 700, 100, "bytes"),
+             ("w=50000 (above 48 KiB of shared memory)", 120007, 110000,
+              50000, 3, "bytes")]
+    cases += [(f"w={w} mod={mod} {kind}", 77777, 70000, w, mod, kind)
+              for w in (1, 2, 17, 33) for mod in (1, 7, 100, 2**31 - 1)
+              for kind in ("bytes", "ff")]
     max_err = 0
-    for name, ne, n_text, w, rb in cases:
-        mod = 7 if name.endswith("mod 7") else 100
-        ext = synth(ne, n_text, w, rb)
+
+    def check(name, ext, n_text, w, mod):
+        nonlocal max_err
         m_k, c_k = kr_mask.break_mask(ext, n_text, w, mod)
         torch.cuda.synchronize()
         m_p, c_p = kr_mask.break_mask_plain(ext, n_text, w, mod)
         err = max(int((m_k != m_p).sum()), abs(int(c_k) - int(c_p)))
         max_err = max(max_err, err)
-        log(f"[kernel] {name}: ne={ne} n_text={n_text} w={w} mod={mod} "
-            f"count kernel={int(c_k)} plain={int(c_p)} mismatches={err}")
+        log(f"[kernel] {name}: ne={ext.numel()} n_text={n_text} w={w} "
+            f"mod={mod} count kernel={int(c_k)} plain={int(c_p)} "
+            f"mismatches={err}")
         if err:
             raise AssertionError(f"kr_mask kernel != plain on {name}")
+
+    for name, ne, n_text, w, mod, kind in cases:
+        check(name, synth(ne, n_text, w, kind), n_text, w, mod)
+    # views that start off a 16-byte boundary: the kernel's byte loads
+    whole = synth(100003, 99000, 10, "bytes")
+    for off in (1, 3, 8):
+        view = whole[off:]
+        if view.data_ptr() % 16 == 0:
+            raise AssertionError("the view is 16-byte aligned: the byte "
+                                 "path was not exercised")
+        check(f"misaligned view ext[{off}:]", view, 99000 - off, 10, 100)
     report["kernel_max_abs_err"] = max_err
+    report["kernel_cases"] = len(cases) + 3
 
     # timings at the main path's shapes: the real 8/32 Mbp ext arrays
+    fn, _ = kr_mask.launcher()
     timings = {}
     for mbp in (8, 32):
         text = _bench_rb(mbp).text
-        ext = torch.from_numpy(_ext_of(text, 10)).to(dev)
+        ext_np = _ext_of(text, 10)
+        ext = torch.from_numpy(ext_np).to(dev)
         n_text = int(text.size)
+        ne = int(ext.numel())
         m_k, c_k = kr_mask.break_mask(ext, n_text, 10, 100)
         m_p, c_p = kr_mask.break_mask_plain(ext, n_text, 10, 100)
         if not (bool((m_k == m_p).all()) and int(c_k) == int(c_p)):
@@ -391,11 +480,43 @@ def phase_kernel(torch, report):
             torch, lambda: kr_mask.break_mask_plain(ext, n_text, 10, 100), 5)
         ms2 = _event_ms(torch,
                         lambda: kr_mask.break_mask(ext, n_text, 10, 100), 20)
-        timings[f"{mbp}mbp"] = {"ne": int(ext.numel()), "ms": min(ms, ms2),
-                                "ms_runs": [ms, ms2], "plain_ms": plain_ms,
-                                "breaks": int(c_k)}
-        log(f"[kernel] {mbp} Mbp ext ne={ext.numel()}: kernel {ms:.4f} / "
-            f"{ms2:.4f} ms, plain {plain_ms:.4f} ms ({int(c_k)} breaks)")
+        # the launcher alone (memset + kernel) on preallocated outputs: on
+        # one ext, and on copies that exceed the 50 MB L2 together
+        copies = max(2, (160 << 20) // (2 * ne) + 1)
+        exts = [ext] + [ext.clone() for _ in range(copies - 1)]
+        masks = [torch.empty(ne, dtype=torch.bool, device=dev) for _ in exts]
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        turn = [0]
+
+        def bare(n):
+            i = turn[0] = (turn[0] + 1) % n
+            rc = fn(exts[i].data_ptr(), masks[i].data_ptr(), count.data_ptr(),
+                    ne, n_text, 10, 100, stream)
+            if rc != 0:
+                raise RuntimeError(f"kr_break_mask: CUDA error {rc}")
+        warm_ms = min(_event_ms(torch, lambda: bare(1), 50) for _ in range(3))
+        cold_ms = min(_event_ms(torch, lambda: bare(copies), 50)
+                      for _ in range(3))
+        if not bool((masks[turn[0]] == m_p).all()) or int(count) != int(c_p):
+            raise AssertionError(f"bare launch != plain at {mbp} Mbp")
+        del exts, masks
+        bound_ms = 2 * ne / HBM_BYTES_PER_S * 1e3
+        best = min(ms, ms2)
+        timings[f"{mbp}mbp"] = {
+            "ne": ne, "ms": best, "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+            "breaks": int(c_k), "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound": bound_ms / best, "gb_per_s": 2 * ne / best / 1e6,
+            "launcher_ms_one_ext": warm_ms, "launcher_ms_cold_l2": cold_ms,
+            "launcher_cold_share_of_bound": bound_ms / cold_ms,
+            "launcher_cold_gb_per_s": 2 * ne / cold_ms / 1e6}
+        log(f"[kernel] {mbp} Mbp ext ne={ne}: wrapper {ms:.4f} / {ms2:.4f} "
+            f"ms ({bound_ms / best:.1%} of the {bound_ms:.4f} ms bound, "
+            f"{2 * ne / best / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms "
+            f"({int(c_k)} breaks); launcher alone {warm_ms:.4f} ms on one "
+            f"ext, {cold_ms:.4f} ms with a cold L2 "
+            f"({bound_ms / cold_ms:.1%} of the bound, "
+            f"{2 * ne / cold_ms / 1e6:.0f} GB/s)")
     report["kernel_timings"] = timings
 
 
@@ -406,7 +527,6 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     count must equal the baseline's and be above 0. The PFP backend must
     have launched the KR kernel in both runs, the direct backend never.
     Returns (record, warm result)."""
-    import bench
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.kernels import kr_mask, probe
     kr_mask.launches = probe.launches = 0
@@ -430,10 +550,8 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
                              f"kernels: {launches}")
     if res.output_bytes() != cold.output_bytes():
         raise AssertionError(f"{label}: two runs disagree")
-    cpu = bench.run_cpu_baseline(rb.text, rb.seq_lengths, opts, mbp, reps=1)
-    if cpu is None:
-        raise AssertionError("native/baseline_cpu did not build or run")
-    base_mbp_s, base_matches = cpu
+    base_mbp_s, base_matches = _run_cpu_baseline(rb.text, rb.seq_lengths,
+                                                 opts, mbp)
     entry = {"label": label, "backend": backend, "mbp": mbp,
              "num_docs": rb.num_docs, "text_chars": int(rb.text.size),
              "f": opts.max_doc_freq, "F": opts.max_total_freq,
@@ -454,7 +572,7 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
 def phase_end_to_end(torch, report):
     """Strict multi-MUMs at 8 and 32 Mbp (windowed scan, cap 16); returns
     the 8 Mbp result."""
-    from mumemto_tpu import options
+    from mumemto_tpu_torch import options
     report["e2e"] = {}
     for mbp in (8, 32):
         entry, res = _drive(torch, f"e2e {mbp} Mbp", _bench_rb(mbp),
@@ -472,7 +590,7 @@ def phase_mem(torch, report):
     """Multi-MEMs: -f 3 (cap 32, windowed with the global prev-same-doc
     chain) at 8 and 32 Mbp, -f 0 -F 0 (uncapped) at 8 Mbp; returns the
     -f 3 8 Mbp result."""
-    from mumemto_tpu import options
+    from mumemto_tpu_torch import options
     report["mem"] = {}
     for f, mbp in ((3, 8), (0, 8), (3, 32)):
         opts = options.normalize(N_DOCS, rare_freq=f, max_mem_freq=0,
@@ -487,7 +605,7 @@ def phase_mem(torch, report):
 
 def phase_walk(torch, report):
     """128 docs of 62.5 kbp, strict MUMs: cap 256, the probe-guarded walk."""
-    from mumemto_tpu import options
+    from mumemto_tpu_torch import options
     from mumemto_tpu_torch import engine
     rb = _bench_rb(8, n_docs=128)
     opts = options.normalize(rb.num_docs, quiet=True)
@@ -590,8 +708,8 @@ def phase_routes(torch, report, pfp_mums: bytes):
     and -A must launch the KR kernel; -g, -p and -a launch no kernel."""
     import tempfile
     import numpy as np
-    from mumemto_tpu import formats, options
-    from mumemto_tpu.refbuilder import RefBuilder
+    from mumemto_tpu_torch import formats, options
+    from mumemto_tpu_torch.refbuilder import RefBuilder
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.ops import pfp as ops_pfp
     rb = _bench_rb(8)
@@ -662,8 +780,8 @@ def phase_routes(torch, report, pfp_mums: bytes):
 def phase_bytes(torch, report):
     import tempfile
     import numpy as np
-    from mumemto_tpu import options, refbuilder
-    from mumemto_tpu.oracle import naive
+    from mumemto_tpu_torch import options, refbuilder
+    from mumemto_tpu_torch.oracle import naive
     from mumemto_tpu_torch import engine
 
     rb = _bench_rb(1, seed=1)
@@ -693,11 +811,10 @@ def phase_bytes(torch, report):
             raise AssertionError(f"1 Mbp {label}: cuda files != cpu files")
         same[label] = sizes
 
-    import bench
     rng = np.random.default_rng(3)
     checked = []
     for label, with_n in (("acgt", False), ("with N", True)):
-        docs = bench.synth_collection(0.003, 3, seed=2, snp_rate=0.004)
+        docs = _synth_collection(0.003, 3, seed=2, snp_rate=0.004)
         if with_n:
             docs = [np.where(rng.random(d.size) < 0.02, ord("N"), d
                              ).astype(np.uint8) for d in docs]
@@ -758,7 +875,7 @@ def _write_fastas(docs, tmp):
 
 def _mums_set(path, num_docs):
     """The .mums file as a set of (length, offsets, strands) records."""
-    from mumemto_tpu import formats
+    from mumemto_tpu_torch import formats
     L, S, T = formats.parse_mums(path, num_docs)
     return {(int(l), tuple(s.tolist()), tuple(t.tolist()))
             for l, s, t in zip(L, S, T)}
@@ -803,12 +920,11 @@ def phase_slice(torch, report, res_8mbp, res_f3):
     import io
     import tempfile
     import numpy as np
-    import bench
     from mumemto_tpu_torch import cli, library, properties
     from mumemto_tpu_torch.kernels import kr_mask
     from mumemto_tpu_torch.parallel import mumemtom
     out = {"paths": {}}
-    docs = bench.synth_collection(8, N_DOCS, seed=0, snp_rate=0.001)
+    docs = _synth_collection(8, N_DOCS)
     seqs = [[fwd.tobytes()] for fwd in docs]
     lib, s, lm = _counted(torch, lambda: library.mum(seqs, device="cuda"))
     same = (np.array_equal(lib.match_lengths, res_8mbp.lengths)
@@ -934,7 +1050,7 @@ def phase_slice(torch, report, res_8mbp, res_f3):
         out["paths"]["oom fallback"] = lf
 
     # the merge subcommand at 1 Mbp: its files on cuda == on cpu
-    docs1 = bench.synth_collection(1, N_DOCS, seed=1, snp_rate=0.001)
+    docs1 = _synth_collection(1, N_DOCS, seed=1)
     out["merge 1mbp"] = {}
     with tempfile.TemporaryDirectory() as tmp:
         fastas = _write_fastas(docs1, tmp)
@@ -992,8 +1108,10 @@ def main() -> int:
     phase_routes(torch, report, res_8mbp.output_bytes())
     phase_bytes(torch, report)
     phase_slice(torch, report, res_8mbp, res_f3)
-    if "jax" in sys.modules:
-        raise AssertionError("chip_smoke imported jax")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
+    if foreign:
+        raise AssertionError(f"chip_smoke imported {foreign}")
     report["total_s"] = time.perf_counter() - t_all
 
     t8 = report["kernel_timings"]["8mbp"]
@@ -1005,17 +1123,21 @@ def main() -> int:
             "-P -p" if label in ("-P", "-p") else "-A -a"][label + "_launches"]
     report["path_launches"].update(report["slice"]["paths"])
     pr = report["probe"]
+    # add_one's bound: the (8, 128) int32 tile read once and written once
+    probe_bound_ms = 2 * 8 * 128 * 4 / HBM_BYTES_PER_S * 1e3
     kernels = {"kernels": [{
         "name": "kr_break_mask", "route": "cuda", "source": KR_SOURCE,
         "replaces": KR_REPLACES,
         "launches": sum(v["kr_break_mask"]
                         for v in report["path_launches"].values()),
         "max_abs_err": report["kernel_max_abs_err"], "ms": t8["ms"],
-        "plain_ms": t8["plain_ms"]}, {
+        "plain_ms": t8["plain_ms"], "bound_ms": t8["bound_ms"],
+        "bound_by": t8["bound_by"], "library_ms": None}, {
         "name": "add_one", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": pr["launches"],
         "max_abs_err": pr["max_abs_err"], "ms": pr["ms"],
-        "plain_ms": pr["plain_ms"]}]}
+        "plain_ms": pr["plain_ms"], "bound_ms": probe_bound_ms,
+        "bound_by": "bytes", "library_ms": pr["library_ms"]}]}
     device = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}

@@ -4,7 +4,8 @@ Finds multi-MUMs and multi-MEMs across a pangenome collection with the
 prefix-free-parse (PFP) pipeline of mumemto_tpu, on one NVIDIA GPU (or the
 CPU, for tests). Its output bytes (.mums, .mems, .bumbl, .lengths,
 .thresh, .thresh_rev, .athresh) equal mumemto_tpu's for the same inputs.
-The package imports torch and never jax.
+The package imports torch, never jax and nothing of mumemto_tpu: it keeps
+its own copy of every host module (formats, refbuilder, options, ...).
 
 Entry points:
     python -m mumemto_tpu_torch a.fa b.fa ... -o out [--device cuda]

@@ -7,8 +7,8 @@ in the reference) plus --device, and writes PREFIX.lengths and PREFIX.mums
 (.mems with -f != 1, .bumbl with -b), plus .thresh/.thresh_rev with -M or
 .athresh with -M -n, and .sa/.lcp/.bwt with -A. -P writes .dict/.parse
 and stops; -p resumes from them, -a replays .sa/.lcp/.bwt files, -g runs
-the direct backend. `merge` runs the port's analysis/merge, every other
-subcommand the JAX package's jax-free analysis dispatcher. A CUDA
+the direct backend. The subcommands run through analysis/dispatch (`merge`
+with --device, analysis/merge). A CUDA
 out-of-memory error on a strict multi-MUM run over >= 3 files is retried
 as MumemtoM partitions on the same device. --seq-shards is not ported
 yet and fails with a "not yet ported" error instead of being ignored.
@@ -24,8 +24,40 @@ import time
 import numpy as np
 import torch
 
-# jax-free at import: jax is loaded only inside its build functions
-from mumemto_tpu.cli import SKULL, SUBCOMMANDS, VERSION, read_filelist
+VERSION = "1.4.0"
+
+SKULL = r"""
+                            ,--.
+                           {    }
+                           K,   }
+                          /  ~Y`
+                     ,   /   /
+                    {_'-K.__/
+                      `/-.__L._
+                      /  ' /`\_}
+                     /  ' /
+             ____   /  ' /
+      ,-'~~~~    ~~/  ' /_
+    ,'             ``~~~  ',
+   (                        Y
+  {                         I
+ {      -                    `,
+ |       ',                   )
+ |        |   ,..__      __. Y
+ |    .,_./  Y ' / ^Y   J   )|
+ \           |' /   |   |   ||
+  \          L_/    . _ (_,.'(
+   \,   ,      ^^""' / |      )
+     \_  \          /,L]     /
+       '-_~-,       ` `   ./`
+          `'{_            )
+              ^^\..___,.--`
+"""
+
+SUBCOMMANDS = ("viz", "inversion", "coverage", "collinear", "convert", "view",
+               "extract", "label", "lengths", "merge", "bed", "trim",
+               "density", "tabix", "convert-thresh", "mori")
+
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -75,13 +107,23 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
+def read_filelist(path: str) -> list:
+    files = []
+    with open(path) as f:
+        for line in f:
+            words = line.split()
+            if words:
+                files.append(words[0])
+    return files
+
+
 def _unported_flags(args) -> list:
     """The given flags whose code paths the port does not have yet."""
     return ["--seq-shards"] if args.seq_shards != 0 else []
 
 
 def _options(args, rb):
-    from mumemto_tpu import options
+    from mumemto_tpu_torch import options
     return options.normalize(
         rb.num_docs, min_match_len=args.min_match_len,
         num_distinct_docs=args.num_distinct_docs, rare_freq=args.rare_freq,
@@ -135,7 +177,7 @@ def _oom_partition_fallback(args, files, device) -> int:
 
 
 def build_main(argv) -> int:
-    from mumemto_tpu import formats, refbuilder
+    from mumemto_tpu_torch import formats, refbuilder
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.device import resolve
 
@@ -235,13 +277,10 @@ def main(argv=None) -> int:
     if argv and argv[0] == "--version":
         print(VERSION)
         return 0
-    if argv and argv[0] == "merge":
-        from mumemto_tpu_torch.analysis import merge
-        return merge.run(argv[1:])
     if argv and argv[0] in SUBCOMMANDS:
-        from mumemto_tpu.analysis import dispatch
+        from mumemto_tpu_torch.analysis import dispatch
         return dispatch.run(argv[0], argv[1:])
-    from mumemto_tpu import options
+    from mumemto_tpu_torch import options
     try:
         return build_main(argv)
     except (options.InputError, FileNotFoundError) as e:

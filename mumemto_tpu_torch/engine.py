@@ -27,8 +27,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from mumemto_tpu import formats, progress
-from mumemto_tpu.options import MatchOptions
+from mumemto_tpu_torch import formats, progress
+from mumemto_tpu_torch.options import MatchOptions
 from mumemto_tpu_torch.device import resolve
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import pfp as ops_pfp
@@ -126,7 +126,7 @@ def _doc_metadata(rb, opts):
 
 
 # the port's phase names -> the progress bar's stage names
-# (mumemto_tpu.progress._STAGES, named after the JAX package's phases)
+# (progress._STAGES, named after the JAX package's phases)
 PROGRESS_STAGE = {
     "build_pfp": "build_pfp", "read_parse": "build_pfp",
     "dict_index": "dict_index", "suffix_array": "dict_index",

@@ -40,10 +40,12 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu into build/lib<name>.so unless the library is
-    newer than its source; returns the library path."""
-    src = os.path.join(CSRC, name + ".cu")
+def build(name: str, src: str | None = None) -> str:
+    """Compile csrc/<name>.cu (or the source file `src`) into
+    build/lib<name>.so unless the library is newer than its source; returns
+    the library path."""
+    if src is None:
+        src = os.path.join(CSRC, name + ".cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out

@@ -24,7 +24,11 @@ launches = 0  # kernel launches made by break_mask (CPU calls do not count)
 _fns = None  # (kr_break_mask, its shared-memory tile's max w), bound once
 
 
-def _kernel():
+def launcher():
+    """(kr_break_mask, max_w): the C launcher of csrc/kr_mask.cu, built and
+    bound at the first call, and the largest w it takes. The launcher's
+    arguments are (ext, mask, count, ne, n_real, w, mod, stream); calls
+    made through it directly are not counted in `launches`."""
     global _fns
     if _fns is None:
         fn = build.function(
@@ -71,7 +75,12 @@ def break_mask_plain(ext: torch.Tensor, n_real: int, w: int, mod: int):
 def break_mask(ext: torch.Tensor, n_real: int, w: int, mod: int):
     """(mask, count) over ext coords: mask[k] is a KR break at ext
     position k (see csrc/kr_mask.cu). count is a 0-d int32 tensor on
-    ext's device."""
+    ext's device; the launcher zeroes it on the stream before the kernel
+    adds to it. ext may start at any byte address: the kernel takes byte
+    loads when it is not 16-byte aligned. On a CUDA tensor w is limited
+    by the kernel's shared-memory tile (227328 on sm_90a, far above any
+    parse window) and a larger w raises ValueError; the plain version on
+    a CPU tensor takes any w."""
     global launches
     _check(ext, w, mod)
     if ext.device.type == "cpu":
@@ -79,16 +88,16 @@ def break_mask(ext: torch.Tensor, n_real: int, w: int, mod: int):
     if ext.device.type != "cuda":
         raise ValueError(f"break_mask takes a CPU or CUDA tensor, got "
                          f"{ext.device}")
-    fn, max_w = _kernel()
+    fn, max_w = launcher()
     if w > max_w:
         raise ValueError(f"w={w} does not fit the kernel's shared-memory "
                          f"tile (max {max_w})")
     mask = torch.empty(ext.numel(), dtype=torch.bool, device=ext.device)
-    count = torch.zeros(1, dtype=torch.int32, device=ext.device)
+    count = torch.empty((), dtype=torch.int32, device=ext.device)
     rc = build.launch(fn, ext, ext.data_ptr(), mask.data_ptr(),
                       count.data_ptr(), ext.numel(), int(n_real), int(w),
                       int(mod))
     if rc != 0:
         raise RuntimeError(f"kr_break_mask launch failed: CUDA error {rc}")
     launches += 1
-    return mask, count[0]
+    return mask, count

@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from mumemto_tpu import refbuilder
-from mumemto_tpu.options import MatchOptions
+from mumemto_tpu_torch import refbuilder
+from mumemto_tpu_torch.options import MatchOptions
 from mumemto_tpu_torch import engine
 
 

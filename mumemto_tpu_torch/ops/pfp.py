@@ -82,7 +82,7 @@ def sort_phrases(ext_np: np.ndarray, st_np: np.ndarray, ln_np: np.ndarray):
     """Lex-sort phrase records on the host; returns (order, grp), grp the
     0-based rank group in sorted order (equal phrases share grp). Native
     C++ sort when the extension builds, else Python's sort."""
-    from mumemto_tpu.native import get_native
+    from mumemto_tpu_torch.native import get_native
     nat = get_native()
     if nat is not None and hasattr(nat, "sort_phrases"):
         order_b, grp_b = nat.sort_phrases(

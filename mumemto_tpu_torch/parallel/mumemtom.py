@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import os
 
-from mumemto_tpu import options, refbuilder
+from mumemto_tpu_torch import options, refbuilder
 from mumemto_tpu_torch import engine
 from mumemto_tpu_torch.analysis import merge as merge_mod
 

@@ -1,21 +1,59 @@
 """Oracle-free property checks of the port's match results.
 
-check_mum_properties and check_mem_properties are copies of the functions
-in mumemto_tpu/properties.py, which import the JAX package's engine (and
-so jax) for `_doc_metadata`; these take the port's. The helpers they call
-come from mumemto_tpu.properties, which is jax-free at import. Each match
-is checked against the raw collection text only: exact occurrence,
-uniqueness (MUMs) or completeness and the k/f/F filters (MEMs), and
-both-side maximality.
+A copy of mumemto_tpu/properties.py with `_doc_metadata` taken from the
+port's engine. Each match is checked against the raw collection text
+only: exact occurrence, uniqueness (MUMs) or completeness and the k/f/F
+filters (MEMs), and both-side maximality.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from mumemto_tpu.properties import (_check_maximality, _count_occurrences,
-                                    mum_text_positions)
 from mumemto_tpu_torch.engine import _doc_metadata
+
+
+def _count_occurrences(hay: bytes, needle: bytes) -> int:
+    count = 0
+    start = 0
+    while True:
+        p = hay.find(needle, start)
+        if p < 0:
+            return count
+        count += 1
+        start = p + 1
+
+
+def mum_text_positions(lengths, offsets, strands, doc_offsets, doc_lens):
+    """Invert the writer's strand transform (mem_finder.hpp:370-375):
+    '-' slots store 2*dl - pos - L - 1, so pos = 2*dl - off - L - 1.
+    Returns (m, N) positions into the concatenated text (-1 where absent).
+    """
+    L = np.asarray(lengths, dtype=np.int64)[:, None]
+    off = np.asarray(offsets, dtype=np.int64)
+    st = np.asarray(strands)
+    dl = np.asarray(doc_lens, dtype=np.int64)[None, :]
+    pos = np.where(st < 0, 2 * dl - off - L - 1, off)
+    out = np.asarray(doc_offsets, dtype=np.int64)[None, :] + pos
+    return np.where(off < 0, -1, out)
+
+
+def _check_maximality(text: np.ndarray, positions, L: int, label: str):
+    """Not all previous chars equal AND not all next chars equal. Positions
+    at the text edges count as unique sentinels (nothing to extend into)."""
+    n = text.size
+    ps = np.asarray(positions, dtype=np.int64)
+    prev = np.where(ps > 0, text[np.maximum(ps - 1, 0)].astype(np.int64),
+                    -1 - np.arange(ps.size))
+    nxt_idx = ps + L
+    nxt = np.where(nxt_idx < n,
+                   text[np.minimum(nxt_idx, n - 1)].astype(np.int64),
+                   -1 - np.arange(ps.size))
+    assert len(np.unique(prev)) > 1, \
+        f"{label}: not left-maximal (all preceded by {prev[0]})"
+    assert len(np.unique(nxt)) > 1, \
+        f"{label}: not right-maximal (all followed by {nxt[0]})"
+
 
 
 def check_mum_properties(results, rb, max_checked: int | None = None,

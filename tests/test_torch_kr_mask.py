@@ -69,6 +69,65 @@ def test_plain_matches_xla_acgt_and_edges(rng, w, n_text):
         assert c_t == 0
 
 
+def _filled(rng, ne, n_text, w, kind):
+    """ext with random bytes or all-255 bytes (the largest partial sums)."""
+    ext = np.zeros(ne, np.uint8)
+    ext[0] = jax_pfp.DOLLAR_PFP
+    ext[1:n_text + 1] = (255 if kind == "ff"
+                         else rng.integers(0, 256, n_text))
+    ext[n_text + 1:n_text + 1 + w] = jax_pfp.DOLLAR_PFP
+    return ext
+
+
+GRID_W = [1, 2, 17, 33]
+GRID_MOD = [1, 7, 100, 2**31 - 1]
+
+
+@pytest.mark.parametrize("mod", GRID_MOD)
+@pytest.mark.parametrize("w", GRID_W)
+def test_plain_matches_xla_over_w_and_mod(rng, w, mod):
+    """Every w and mod of the grid, on an ne that is no multiple of 16,
+    random bytes and all-255 bytes: the plain version equals the XLA twin."""
+    ne, n_text = 5003, 4900
+    for kind in ("bytes", "ff"):
+        ext = _filled(rng, ne, n_text, w, kind)
+        m_x, c_x = jax_pfp._break_mask(jnp.asarray(ext), jnp.int32(n_text),
+                                       w, mod, ne)
+        m_t, c_t = _plain(ext, n_text, w, mod)
+        assert c_t == int(c_x), kind
+        assert (m_t == np.asarray(m_x)).all(), kind
+        if mod == 1:  # every hash is a multiple of 1
+            assert c_t == n_text - w + 1
+
+
+@pytest.mark.parametrize("w,mod", [(1, 1), (2, 7), (17, 100),
+                                   (33, 2**31 - 1)])
+def test_plain_matches_pallas_over_w_and_mod(rng, w, mod):
+    """The Pallas kernel in interpreter mode on all-255 bytes, then random
+    bytes, over the diagonal of the grid."""
+    ne = pk.BLK * 2
+    n_text = ne - 77
+    for kind in ("ff", "bytes"):
+        ext = _filled(rng, ne, n_text, w, kind)
+        m_p, c_p = pk.break_mask_pallas(jnp.asarray(ext), jnp.int32(n_text),
+                                        w, mod, ne, interpret=True)
+        m_t, c_t = _plain(ext, n_text, w, mod)
+        assert c_t == int(c_p), kind
+        assert (m_t == np.asarray(m_p)).all(), kind
+
+
+def test_plain_takes_a_misaligned_view(rng):
+    """A view that starts off a 16-byte boundary is an ext like any other
+    for the plain version (the kernel takes byte loads for it)."""
+    whole = torch.from_numpy(_filled(rng, 6001, 5900, 10, "bytes"))
+    for off in (1, 3, 8):
+        view = whole[off:]
+        assert view.is_contiguous()
+        m_v, c_v = kr_mask.break_mask(view, 5900 - off, 10, 100)
+        m_c, c_c = kr_mask.break_mask_plain(view.clone(), 5900 - off, 10, 100)
+        assert int(c_v) == int(c_c) and bool((m_v == m_c).all())
+
+
 def test_cpu_tensor_takes_plain_and_counts_no_launch(rng):
     ext = _ext(rng, 8192, 6000, 10, alphabet=b"ACGT")
     before = kr_mask.launches
@@ -104,3 +163,55 @@ def test_cuda_kernel_matches_plain(rng):
         m_p, c_p = kr_mask.break_mask_plain(ext, n_text, w, 100)
         assert int(c_k) == int(c_p)
         assert bool((m_k == m_p).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mod", GRID_MOD)
+@pytest.mark.parametrize("w", GRID_W + [700, 50000])
+def test_cuda_kernel_matches_plain_over_w_and_mod(rng, w, mod):
+    """The CPU grid on the card, kernel against plain: an ne that is no
+    multiple of 16, random and all-255 bytes, the staged path (w > 16, and
+    w = 50000 above 48 KiB of shared memory), and misaligned views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ne, n_text = 120007, 110000
+    for kind in ("bytes", "ff"):
+        whole = torch.from_numpy(_filled(rng, ne, n_text, w, kind)).cuda()
+        for off in (0, 1, 8):
+            ext = whole[off:]
+            assert (ext.data_ptr() % 16 == 0) == (off == 0)
+            m_k, c_k = kr_mask.break_mask(ext, n_text - off, w, mod)
+            torch.cuda.synchronize()
+            m_p, c_p = kr_mask.break_mask_plain(ext, n_text - off, w, mod)
+            assert int(c_k) == int(c_p), (kind, off)
+            assert bool((m_k == m_p).all()), (kind, off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [0, 1], ids=["first", "linear"])
+def test_timing_tool_forms_match_plain(rng, variant):
+    """tools/kr_mask_ab.cu still builds, and its two exact forms (the
+    kernel's first version and the linear form) equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import ctypes
+    import os
+    from mumemto_tpu_torch.kernels import build
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lib = ctypes.CDLL(build.build(
+        "kr_mask_ab", src=os.path.join(root, "tools", "kr_mask_ab.cu")))
+    fn = ctypes.CFUNCTYPE(
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p)(("kr_break_mask_variant", lib))
+    for ne, n_text, w, mod in [(300001, 299000, 10, 100), (77777, 70000, 33, 7)]:
+        ext = torch.from_numpy(_ext(rng, ne, n_text, w)).cuda()
+        mask = torch.empty(ne, dtype=torch.bool, device="cuda")
+        count = torch.empty((), dtype=torch.int32, device="cuda")
+        rc = fn(variant, ext.data_ptr(), mask.data_ptr(), count.data_ptr(), ne,
+                n_text, w, mod, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        m_p, c_p = kr_mask.break_mask_plain(ext, n_text, w, mod)
+        assert int(count) == int(c_p)
+        assert bool((mask == m_p).all())

@@ -20,8 +20,9 @@ import pytest
 import torch
 
 from mumemto_tpu import cli as jax_cli
-from mumemto_tpu import options, progress
+from mumemto_tpu import options
 from mumemto_tpu_torch import cli as t_cli
+from mumemto_tpu_torch import progress
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from conftest import build, rand_seq
