@@ -45,8 +45,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      memory cap between the union's and the largest partition's peak,
      which must hit a real torch.cuda.OutOfMemoryError, fall back to
      partitions and give the anchor-merged set; and the merge
-     subcommand's files at 1 Mbp on cuda against --device cpu.
-Every path of phases 5-8 and 10 is driven with the kernels' launch counts
+     subcommand's files at 1 Mbp on cuda against --device cpu;
+ 11. the sharded scan, the collective merge and the C ABI, every shard on
+     the one card: find_matches_seq_sharded with 2, 4 and 8 shards on
+     phase 5's 8 Mbp input (bytes equal to phase 5's; wall, time per stage
+     and peak memory beside a single-device run of the same call), -f 3
+     and -M with 4 shards (bytes equal to phase 6's, .thresh/.thresh_rev
+     equal to a single-device -M run's), the 32 Mbp tier with 8 shards
+     (bytes equal to phase 5's), the CLI with --seq-shards 4 on phase 10's
+     FASTAs (.mums equal to phase 10's union), merge --collective on phase
+     10's anchor partitions (files equal to phase 10's host anchor merge;
+     the fold timed on the card), and a C program (native/test_capi.c
+     built against the port's libmumemto_tpu_torch.so) whose lines must
+     equal library.mum's, or "capi: skipped" where Python has no shared
+     library or there is no gcc/g++.
+Every path of phases 5-8, 10 and 11 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
 and -a must have launched none. The
@@ -63,6 +76,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -75,6 +89,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the data sheet's peak)
 N_DOCS = 8
 EXPECT_8MBP = 6759  # bench tier match count (README.md, BASELINE.md)
 EXPECT_F3_8MBP = 13522  # -f 3 on the same input (native/baseline_cpu)
+EXPECT_32MBP = 27119  # the 32 Mbp tier (native/baseline_cpu)
 
 
 def log(*a):
@@ -104,6 +119,16 @@ class StageTimer:
         now = time.perf_counter()
         self.stages[name] = now - self.t
         self.t = now
+
+
+class SumTimer(StageTimer):
+    """A StageTimer that adds up the stages called more than once (the
+    sharded scan's analyze and compact, once per shard)."""
+
+    def __call__(self, name):
+        before = self.stages.get(name, 0.0)
+        super().__call__(name)
+        self.stages[name] += before
 
 
 def _event_ms(torch, fn, reps: int) -> float:
@@ -571,7 +596,7 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
 
 def phase_end_to_end(torch, report):
     """Strict multi-MUMs at 8 and 32 Mbp (windowed scan, cap 16); returns
-    the 8 Mbp result."""
+    the 8 Mbp result and the 32 Mbp run's .mums bytes."""
     from mumemto_tpu_torch import options
     report["e2e"] = {}
     for mbp in (8, 32):
@@ -583,7 +608,7 @@ def phase_end_to_end(torch, report):
                 raise AssertionError(f"8 Mbp: {entry['matches']} matches, "
                                      f"expected {EXPECT_8MBP}")
             res_8mbp = res
-    return res_8mbp
+    return res_8mbp, res.output_bytes()
 
 
 def phase_mem(torch, report):
@@ -912,10 +937,12 @@ def _partition_spy(torch, mumemtom, kr_mask, parts):
     return real, scan
 
 
-def phase_slice(torch, report, res_8mbp, res_f3):
+def phase_slice(torch, report, res_8mbp, res_f3, work):
     """The library, MumemtoM and the OOM fallback on the 8 Mbp bench
     collection, and the merge subcommand's bytes at 1 Mbp (cuda against
-    cpu). Each path's kernel launches are counted around it."""
+    cpu). Each path's kernel launches are counted around it. The FASTAs,
+    the union run's and the partitions' files are left in the directory
+    `work` for the next phase."""
     import contextlib
     import io
     import tempfile
@@ -953,7 +980,7 @@ def phase_slice(torch, report, res_8mbp, res_f3):
     out["paths"].update({"library.mum": lm, "library.mem": lmm})
 
     doc_lens = [int(d.size) for d in docs]
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(work) as tmp:
         fastas = _write_fastas(docs, tmp)
         union = os.path.join(tmp, "union")
         torch.cuda.empty_cache()
@@ -1085,6 +1112,248 @@ def phase_slice(torch, report, res_8mbp, res_f3):
     report["slice"] = out
 
 
+def _drive_sharded(torch, label, rb, opts, nshards, want_bytes, M):
+    """One sharded scan on the card, every shard on cuda:0: a cold and a
+    warm find_matches_seq_sharded, each with the kernels' launch counts
+    set to 0 just before and read just after (each must launch the KR
+    kernel exactly once and the probe kernel never), the warm one under a
+    per-stage timer and a fresh peak-memory counter. The output bytes of
+    both runs must equal want_bytes. Returns (record, warm result)."""
+    from mumemto_tpu_torch.parallel import mesh, seqpfp
+    devices = mesh.seq_devices(nshards, "cuda")
+    cold, cold_s, l_cold = _counted(
+        torch, lambda: seqpfp.find_matches_seq_sharded(rb, opts, devices,
+                                                       M=M))
+    torch.cuda.reset_peak_memory_stats()
+    timer = SumTimer(torch)
+    res, wall, l_warm = _counted(
+        torch, lambda: seqpfp.find_matches_seq_sharded(
+            rb, opts, devices, M=M, phase=timer))
+    entry = {"label": label, "shards": nshards,
+             "devices": sorted({str(d) for d in devices}),
+             "sort_rounds": seqpfp.sort_rounds(nshards), "M": M,
+             "matches": res.num_matches, "wall_s": wall,
+             "cold_wall_s": cold_s, "stages_s": timer.stages,
+             "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+             "launches": l_warm, "cold_launches": l_cold,
+             "bytes_equal_single_device":
+                 res.output_bytes() == want_bytes == cold.output_bytes()}
+    log(f"[sharded] {label}: {json.dumps(entry)}")
+    for launches in (l_cold, l_warm):
+        if launches != {"kr_break_mask": 1, "add_one": 0}:
+            raise AssertionError(f"{label}: kernel launches {launches}, "
+                                 "expected exactly 1 KR launch")
+    if not entry["bytes_equal_single_device"]:
+        raise AssertionError(f"{label}: bytes != the single-device run's")
+    return entry, res
+
+
+def _capi(torch, report_out):
+    """The C ABI on the card: build the port's shared library, compile
+    native/test_capi.c against it unchanged, feed it 3 documents with
+    MUMEMTO_TORCH_DEVICE=cuda and hold every line against library.mum on
+    the same documents. Skipped, with the reason recorded, where this
+    Python has no shared library or a compiler is missing; any failure
+    after that check raises. The documents are 60 kbp: test_capi.c reads
+    lines of at most 65535 characters."""
+    import shutil
+    import sysconfig
+    from mumemto_tpu_torch import library
+    missing = [what for what, ok in (
+        ("Py_ENABLE_SHARED", sysconfig.get_config_var("Py_ENABLE_SHARED")),
+        ("g++", shutil.which("g++")), ("gcc", shutil.which("gcc")))
+        if not ok]
+    if missing:
+        log(f"capi: skipped ({', '.join(missing)} missing)")
+        report_out["capi"] = {"skipped": missing}
+        return
+    capi = os.path.join(ROOT, "mumemto_tpu_torch", "capi")
+    t0 = time.perf_counter()
+    built = subprocess.run(
+        [sys.executable, os.path.join(capi, "build_capi.py"), "--force"],
+        capture_output=True, text=True, timeout=300)
+    if built.returncode != 0:
+        raise AssertionError(f"capi: the library did not build: "
+                             f"{built.stdout} {built.stderr[-2000:]}")
+    docs = [d.tobytes().decode() for d in
+            _synth_collection(0.18, 3, seed=5, snp_rate=0.002)]
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "test_capi")
+        cc = subprocess.run(
+            ["gcc", "-O2", "-o", exe,
+             os.path.join(ROOT, "native", "test_capi.c"),
+             "-I" + os.path.join(ROOT, "native"), "-L" + capi,
+             "-Wl,-rpath," + capi, "-lmumemto_tpu_torch"],
+            capture_output=True, text=True, timeout=300)
+        if cc.returncode != 0:
+            raise AssertionError(f"capi: test_capi.c did not compile: "
+                                 f"{cc.stderr[-2000:]}")
+        build_s = time.perf_counter() - t0
+        env = dict(os.environ, MUMEMTO_TPU_PYROOT=ROOT,
+                   MUMEMTO_TORCH_DEVICE="cuda")
+        env.pop("MUMEMTO_TPU_CABI_PRELUDE", None)
+        t0 = time.perf_counter()
+        run = subprocess.run([exe], input="\n".join(docs) + "\n",
+                             capture_output=True, text=True, env=env,
+                             timeout=600)
+        run_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"capi: the C program failed: "
+                             f"{run.stderr[-2000:]}")
+    want, s, launches = _counted(
+        torch, lambda: library.mum([[d] for d in docs], device="cuda"))
+    lines = run.stdout.splitlines()
+    if len(lines) != len(want) or not lines:
+        raise AssertionError(f"capi: {len(lines)} lines, library.mum has "
+                             f"{len(want)} matches")
+    for i, line in enumerate(lines):
+        L, offs, strands = want.match_at(i)
+        expect = "%d\t%s\t%s" % (L, ",".join(str(int(o)) for o in offs),
+                                 "".join("+" if t else "-" for t in strands))
+        if line != expect:
+            raise AssertionError(f"capi: line {i} {line!r} != {expect!r}")
+    report_out["capi"] = {"docs": [len(d) for d in docs], "build_s": build_s,
+                          "process_s": run_s, "lines": len(lines),
+                          "library_mum_s": s, "library_launches": launches}
+    report_out["paths"]["library.mum (capi's documents)"] = launches
+    log(f"[sharded] capi: {json.dumps(report_out['capi'])}")
+
+
+def phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work):
+    """The sharded scan (--seq-shards), the collective merge and the C ABI
+    on one card; `work` holds phase 10's FASTAs, union run and anchor
+    partitions. Every comparison is of bytes, and any mismatch raises."""
+    from mumemto_tpu_torch import cli, engine, options
+    from mumemto_tpu_torch.analysis import merge as merge_mod
+    from mumemto_tpu_torch.parallel import collective_merge
+    out = {"paths": {}, "scans": {}}
+    rb = _bench_rb(8)
+    opts = options.normalize(N_DOCS, quiet=True)
+
+    # the same call unsharded, for the wall and the peak beside it
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer(torch)
+    single, s, l1 = _counted(torch, lambda: engine.find_matches(
+        rb, opts, device="cuda", phase=timer))
+    out["single device 8 Mbp"] = {
+        "wall_s": s, "stages_s": timer.stages, "launches": l1,
+        "peak_alloc_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[sharded] single device 8 Mbp: "
+        f"{json.dumps(out['single device 8 Mbp'])}")
+    want = res_8mbp.output_bytes()
+    if single.output_bytes() != want:
+        raise AssertionError("the single-device rerun != phase 5's bytes")
+    for nshards in (2, 4, 8):
+        label = f"MUM 8 Mbp, {nshards} shards"
+        entry, res = _drive_sharded(torch, label, rb, opts, nshards, want,
+                                    M=8192)
+        if entry["matches"] != EXPECT_8MBP or \
+                res.bwt_runs != res_8mbp.bwt_runs:
+            raise AssertionError(f"{label}: {entry['matches']} matches, "
+                                 f"{res.bwt_runs} BWT runs")
+        out["scans"][label] = entry
+        out["paths"][label] = entry["launches"]
+
+    opts_f3 = options.normalize(N_DOCS, rare_freq=3, max_mem_freq=0,
+                                quiet=True)
+    label = "-f 3 8 Mbp, 4 shards"
+    entry, res = _drive_sharded(torch, label, rb, opts_f3, 4,
+                                res_f3.output_bytes(), M=1 << 16)
+    if entry["matches"] != EXPECT_F3_8MBP:
+        raise AssertionError(f"{label}: {entry['matches']} matches")
+    out["scans"][label] = entry
+    out["paths"][label] = entry["launches"]
+
+    # -M: the sharded run's .thresh/.thresh_rev against a single-device
+    # run. M bounds a shard's candidates too, and every suffix of a MUM
+    # that is still 20 long is one: about a million in all here
+    opts_m = options.normalize(N_DOCS, merge=True, quiet=True)
+    label = "-M 8 Mbp, 4 shards"
+    with tempfile.TemporaryDirectory() as tmp:
+        files = _written(engine, rb, opts_m, "cuda", tmp, "single")
+        entry, res = _drive_sharded(torch, label, rb, opts_m, 4,
+                                    files[".mums"], M=1 << 20)
+        engine.write_outputs(res, rb, os.path.join(tmp, "sharded"))
+        for ext in (".mums", ".thresh", ".thresh_rev"):
+            with open(os.path.join(tmp, "sharded" + ext), "rb") as fh:
+                if fh.read() != files[ext] or not files[ext]:
+                    raise AssertionError(f"{label}: {ext} != the "
+                                         "single-device run's")
+        entry["thresh_bytes"] = len(files[".thresh"])
+    out["scans"][label] = entry
+    out["paths"][label] = entry["launches"]
+
+    # the slice's full width: the 32 Mbp tier, nr = 2^26, 8 shards
+    label = "MUM 32 Mbp, 8 shards"
+    entry, res = _drive_sharded(torch, label, _bench_rb(32), opts, 8,
+                                mums_32mbp, M=8192)
+    if entry["matches"] != EXPECT_32MBP:
+        raise AssertionError(f"{label}: {entry['matches']} matches, "
+                             f"expected {EXPECT_32MBP}")
+    out["scans"][label] = entry
+    out["paths"][label] = entry["launches"]
+    del res
+
+    # the CLI: --seq-shards 4 on phase 10's FASTAs against its union run
+    fastas = [os.path.join(work, f"d{i}.fa") for i in range(N_DOCS)]
+    sharded = os.path.join(work, "seq4")
+    rc, s, lc = _counted(torch, lambda: cli.main(
+        fastas + ["-o", sharded, "--seq-shards", "4"]))
+    with open(sharded + ".mums", "rb") as a, \
+            open(os.path.join(work, "union.mums"), "rb") as b:
+        same = a.read() == b.read()
+    out["cli --seq-shards 4"] = {"rc": rc, "s": s, "launches": lc,
+                                 "mums_equal_union": same}
+    log(f"[sharded] cli --seq-shards 4: "
+        f"{json.dumps(out['cli --seq-shards 4'])}")
+    if rc != 0 or not same or lc["kr_break_mask"] != 1:
+        raise AssertionError("cli --seq-shards 4: .mums != the union run's")
+    out["paths"]["cli --seq-shards 4"] = lc
+
+    # merge --collective on phase 10's anchor partitions (5 + 4 docs)
+    parts = [os.path.join(work, f"anchor_part{i}.mums") for i in range(2)]
+    coll = os.path.join(work, "anchor_collective")
+    rc, s, lm = _counted(torch, lambda: cli.main(
+        ["merge", *parts, "-o", coll, "--collective", "--device", "cuda"]))
+    sizes = {}
+    for ext in (".mums", ".athresh", ".lengths"):
+        with open(coll + ext, "rb") as a, \
+                open(os.path.join(work, "anchor" + ext), "rb") as b:
+            ga, gb = a.read(), b.read()
+        if rc != 0 or ga != gb or not ga:
+            raise AssertionError(f"merge --collective: {ext} != the host "
+                                 "anchor merge's")
+        sizes[ext] = len(ga)
+        if ext == ".mums":
+            merged_mums = ga.count(b"\n")
+    if any(lm.values()):
+        raise AssertionError(f"merge --collective launched kernels: {lm}")
+    # the fold alone, on the card, at these partitions' n_anchor
+    cands = [merge_mod.parse_candidate(p) for p in parts]
+    n_anchor = int(cands[0][4].size)
+    dense = collective_merge._dense_arrays(cands, n_anchor)
+    devices = [torch.device("cuda", 0)] * len(parts)
+    fold_ms = _event_ms(torch, lambda: collective_merge.collective_fold(
+        *dense, devices), 20)
+    placed = [torch.from_numpy(a).to(devices[0]) for a in dense]
+    fold_only_ms = _event_ms(
+        torch, lambda: collective_merge._fold_all(*placed), 20)
+    t0 = time.perf_counter()
+    merge_mod.anchor_merge(parts, os.path.join(work, "anchor_host_again"))
+    host_s = time.perf_counter() - t0
+    out["merge --collective"] = {
+        "rc": rc, "s": s, "launches": lm, "sizes": sizes,
+        "n_anchor": n_anchor, "partitions": len(parts),
+        "merged_mums": merged_mums,
+        "upload_gather_fold_ms": fold_ms, "fold_ms": fold_only_ms,
+        "host_anchor_merge_s": host_s}
+    log(f"[sharded] merge --collective: "
+        f"{json.dumps(out['merge --collective'])}")
+
+    _capi(torch, out)
+    report["sharded"] = out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "mumemto_tpu_torch")):
         print("chip_smoke: mumemto_tpu_torch not found beside this script; "
@@ -1102,12 +1371,14 @@ def main() -> int:
     phase_probe(torch, report)
     phase_build(report)
     phase_kernel(torch, report)
-    res_8mbp = phase_end_to_end(torch, report)
+    res_8mbp, mums_32mbp = phase_end_to_end(torch, report)
     res_f3 = phase_mem(torch, report)
     phase_walk(torch, report)
     phase_routes(torch, report, res_8mbp.output_bytes())
     phase_bytes(torch, report)
-    phase_slice(torch, report, res_8mbp, res_f3)
+    with tempfile.TemporaryDirectory() as work:
+        phase_slice(torch, report, res_8mbp, res_f3, work)
+        phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
     if foreign:
@@ -1122,6 +1393,7 @@ def main() -> int:
         report["path_launches"][label] = report["routes"][
             "-P -p" if label in ("-P", "-p") else "-A -a"][label + "_launches"]
     report["path_launches"].update(report["slice"]["paths"])
+    report["path_launches"].update(report["sharded"]["paths"])
     pr = report["probe"]
     # add_one's bound: the (8, 128) int32 tile read once and written once
     probe_bound_ms = 2 * 8 * 128 * 4 / HBM_BYTES_PER_S * 1e3

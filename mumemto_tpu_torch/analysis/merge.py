@@ -1,8 +1,8 @@
 """`merge` subcommand: MumemtoM partition merging, anchor- or string-based.
 
 A copy of mumemto_tpu/analysis/merge.py with the string merge's recursive
-"MUMs of MUMs" scan on the port's engine, on `device`. `--collective` (the
-on-device anchor fold across partitions) is not ported yet and is refused.
+"MUMs of MUMs" scan on the port's engine, on `device`. `--collective`
+runs the anchor fold on `device` (parallel/collective_merge.py).
 
 Mirrors:
   * anchor merge: src/merge_candidates.cpp (parse_candidate :62-95,
@@ -404,16 +404,14 @@ def run(argv) -> int:
     ap.add_argument("--output", "-o", default="merged")
     ap.add_argument("--verbose", "-v", action="store_true")
     ap.add_argument("--collective", action="store_true",
-                    help="not yet ported to mumemto_tpu_torch")
+                    help="run the anchor-merge fold on the device: the "
+                         "per-partition anchor metadata spread over the "
+                         "visible cards, one gather, a vectorized fold "
+                         "(anchor mode only)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the string merge's scan "
-                         "(default: cuda)")
+                    help="torch device of the string merge's scan and of "
+                         "the --collective fold (default: cuda)")
     args = ap.parse_args(argv)
-    if args.collective:
-        print("Error: merge --collective is not yet ported to "
-              "mumemto_tpu_torch (see ROADMAP.md; use python -m "
-              "mumemto_tpu merge --collective)", file=sys.stderr)
-        return 2
     if len(args.mum_files) < 2:
         ap.error("At least two MUMs files are required for merging")
 
@@ -436,8 +434,19 @@ def run(argv) -> int:
             print("Error: -m is only for string merging, but anchor-based "
                   "merging detected. Ignoring -m.", file=sys.stderr)
         merge_anchor_lengths(paths, output_base)
-        anchor_merge(args.mum_files, output, verbose=args.verbose)
+        if args.collective:
+            from mumemto_tpu_torch.parallel import collective_merge
+            collective_merge.collective_anchor_merge(
+                args.mum_files, output, device=args.device,
+                verbose=args.verbose)
+        else:
+            anchor_merge(args.mum_files, output, verbose=args.verbose)
         return 0
+
+    if args.collective:
+        print("Error: --collective applies to anchor-based merging only "
+              "(.athresh inputs).", file=sys.stderr)
+        return 1
 
     if not all(os.path.exists(p + ".thresh") for p in paths):
         print("Error: *.thresh or *.athresh files required for all inputs "

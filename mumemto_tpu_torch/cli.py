@@ -10,8 +10,10 @@ and stops; -p resumes from them, -a replays .sa/.lcp/.bwt files, -g runs
 the direct backend. The subcommands run through analysis/dispatch (`merge`
 with --device, analysis/merge). A CUDA
 out-of-memory error on a strict multi-MUM run over >= 3 files is retried
-as MumemtoM partitions on the same device. --seq-shards is not ported
-yet and fails with a "not yet ported" error instead of being ignored.
+as MumemtoM partitions on the same device. --seq-shards N shards the scan
+of one collection (the FASTA build or a -p resume) over N shards placed
+round-robin on the visible cards (parallel/seqpfp.py, parallel/mesh.py);
+on one card, or with --device cpu, every shard runs on that device.
 """
 
 from __future__ import annotations
@@ -98,7 +100,10 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="use the direct suffix-array backend (no PFP)")
     ap.add_argument("-P", "--only-parse", action="store_true")
     ap.add_argument("--seq-shards", type=int, default=0, metavar="N",
-                    help="shard one collection's scan over N devices")
+                    help="shard ONE collection's scan into N row blocks "
+                         "(power of two), placed round-robin on the "
+                         "visible devices; fewer devices than shards run "
+                         "several shards each")
     ap.add_argument("-s", "--no-overlap", dest="overlap", action="store_false",
                     help=argparse.SUPPRESS)  # parsed but unused (legacy)
     ap.add_argument("--device", default="cuda",
@@ -117,9 +122,14 @@ def read_filelist(path: str) -> list:
     return files
 
 
-def _unported_flags(args) -> list:
-    """The given flags whose code paths the port does not have yet."""
-    return ["--seq-shards"] if args.seq_shards != 0 else []
+def _seq_mesh(nshards: int, device):
+    """The sharded scan's mesh (one device per shard), or None + error."""
+    from mumemto_tpu_torch.parallel import mesh
+    try:
+        return mesh.seq_devices(nshards, device)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return None
 
 
 def _options(args, rb):
@@ -182,12 +192,6 @@ def build_main(argv) -> int:
     from mumemto_tpu_torch.device import resolve
 
     args = build_argparser().parse_args(argv)
-    unported = _unported_flags(args)
-    if unported:
-        print("Error: not yet ported to mumemto_tpu_torch: "
-              + ", ".join(unported) + " (see ROADMAP.md; use "
-              "python -m mumemto_tpu for these)", file=sys.stderr)
-        return 2
     if args.input_list:
         if args.files:
             print("[build_main] Using filelist, ignoring positional args",
@@ -198,6 +202,15 @@ def build_main(argv) -> int:
     if not files and not args.arrays_in and not args.parse_prefix:
         print("Error: Need to provide a file-list or files as positional args "
               "for processing.", file=sys.stderr)
+        return 1
+    if args.seq_shards and (args.arrays_out or args.arrays_in
+                            or args.only_parse or args.use_gsacak):
+        # refuse rather than silently dropping either flag: the sharded
+        # scan has no array-checkpoint stream-out and the replay/direct
+        # paths are single-device programs (-p resume is supported)
+        print("Error: --seq-shards is not supported together with "
+              "-A/-a/-P/-g; run those single-device (or per-partition "
+              "via MumemtoM).", file=sys.stderr)
         return 1
     device = resolve(args.device)
 
@@ -221,9 +234,18 @@ def build_main(argv) -> int:
         # pfp_mum.cpp:122-123, ref_builder.cpp:140-169
         rb = refbuilder.build_from_lengths(args.parse_prefix,
                                            use_revcomp=args.use_rcomp)
-        results = engine.find_matches(rb, _options(args, rb), device=device,
-                                      pfp_w=args.pfp_w,
-                                      parse_prefix=args.parse_prefix)
+        if args.seq_shards:
+            devices = _seq_mesh(args.seq_shards, device)
+            if devices is None:
+                return 1
+            from mumemto_tpu_torch.parallel import seqpfp
+            results = seqpfp.find_matches_seq_sharded(
+                rb, _options(args, rb), devices, pfp_w=args.pfp_w,
+                parse_prefix=args.parse_prefix)
+        else:
+            results = engine.find_matches(
+                rb, _options(args, rb), device=device, pfp_w=args.pfp_w,
+                parse_prefix=args.parse_prefix)
         engine.write_outputs(results, rb, args.output_prefix)
         print(f"[build_main] {results.num_matches} matches found",
               file=sys.stderr)
@@ -243,12 +265,24 @@ def build_main(argv) -> int:
         return 0
     t0 = time.time()
     try:
-        # -A rides the same scan: the index rows are written out of the
-        # run that also emits the matches (pfp_lcp_mum.hpp:323-378)
-        results = engine.find_matches(
-            rb, opts, device=device, pfp_w=args.pfp_w, pfp_mod=args.hash_mod,
-            backend="direct" if args.use_gsacak else "pfp",
-            arrays_out_prefix=args.output_prefix if args.arrays_out else None)
+        if args.seq_shards:
+            # the expansion row space of this one collection sharded
+            devices = _seq_mesh(args.seq_shards, device)
+            if devices is None:
+                return 1
+            from mumemto_tpu_torch.parallel import seqpfp
+            results = seqpfp.find_matches_seq_sharded(
+                rb, opts, devices, pfp_w=args.pfp_w, pfp_mod=args.hash_mod)
+        else:
+            # -A rides the same scan: the index rows are written out of
+            # the run that also emits the matches
+            # (pfp_lcp_mum.hpp:323-378)
+            results = engine.find_matches(
+                rb, opts, device=device, pfp_w=args.pfp_w,
+                pfp_mod=args.hash_mod,
+                backend="direct" if args.use_gsacak else "pfp",
+                arrays_out_prefix=(args.output_prefix if args.arrays_out
+                                   else None))
     except Exception as e:
         if not (_is_device_oom(e) and _fallback_eligible(opts, files)):
             raise

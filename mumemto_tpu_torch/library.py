@@ -14,11 +14,17 @@ Notes matching the reference library (not the CLI):
     387-388); no other CLI-style normalization is applied.
   * mem() rejects max_doc_freq <= 1 (mumemto_api.cpp:381-383).
   * max_total_freq is passed through untouched (0 = unlimited).
-  * seq_shards (the sharded multi-device scan) is not ported yet and
-    raises NotImplementedError.
+  * seq_shards=N runs the sharded scan (parallel/seqpfp.py) over N
+    shards placed round-robin on the visible cards; on one card, or with
+    device="cpu", every shard runs on that device.
+  * The C ABI's shims (_cabi_mum, _cabi_mem) take their device from the
+    environment variable MUMEMTO_TORCH_DEVICE (default "cuda"), because a
+    C caller passes positional arguments only. mum() and mem() ignore it.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -98,11 +104,21 @@ def _record_lengths(sequences):
     return [[len(s) for s in doc] for doc in sequences]
 
 
-def _refuse_seq_shards(seq_shards: int) -> None:
+def _run(rb, opts, seq_shards: int, device):
+    """Dispatch a library scan: single-device, or the sharded scan when
+    seq_shards > 0 (a power of two)."""
     if seq_shards:
-        raise NotImplementedError(
-            "seq_shards is not yet ported to mumemto_tpu_torch (see "
-            "ROADMAP.md; use mumemto_tpu.library for the sharded scan)")
+        from mumemto_tpu_torch.parallel import mesh, seqpfp
+        return seqpfp.find_matches_seq_sharded(
+            rb, opts, mesh.seq_devices(seq_shards, device, "seq_shards"))
+    return engine.find_matches(rb, opts, device=device, show_progress=False)
+
+
+def _cabi_device() -> str:
+    """The device of the C ABI's shims: MUMEMTO_TORCH_DEVICE, default
+    "cuda". No fallback: "cuda" on a machine without a card fails in
+    device.resolve, and the C side reports that error."""
+    return os.environ.get("MUMEMTO_TORCH_DEVICE", "cuda")
 
 
 def mum(sequences, min_match_len: int = 20, use_revcomp: bool = True,
@@ -111,24 +127,25 @@ def mum(sequences, min_match_len: int = 20, use_revcomp: bool = True,
     """Find multi-MUMs across in-memory sequence collections on `device`.
 
     sequences: list of documents, each a list of str/bytes records.
+    seq_shards: shard the scan into that many row blocks (CLI
+    --seq-shards).
     """
-    _refuse_seq_shards(seq_shards)
     rb = refbuilder.build_from_sequences(sequences, use_revcomp=use_revcomp)
     if num_distinct == 0:
         num_distinct = rb.num_docs
     opts = MatchOptions(min_match_len=min_match_len, num_distinct=num_distinct,
                         max_doc_freq=1, max_total_freq=0,
                         use_revcomp=use_revcomp)
-    results = engine.find_matches(rb, opts, device=device,
-                                  show_progress=False)
+    results = _run(rb, opts, seq_shards, device)
     return MumResult(results, _record_lengths(sequences))
 
 
 def _cabi_mum(sequences, min_match_len, use_revcomp, num_distinct,
-              device="cuda"):
-    """C-ABI marshalling shim (native/mumemto_capi.cc): flat bytes out."""
+              device=None):
+    """C-ABI marshalling shim (capi/mumemto_capi.cc): flat bytes out.
+    device None: _cabi_device()."""
     r = mum(sequences, min_match_len, bool(use_revcomp), num_distinct,
-            device=device)
+            device=device or _cabi_device())
     m = r.num_matches()
     n = r.num_docs()
     lengths = np.ascontiguousarray(r.match_lengths, dtype=np.uint32).tobytes()
@@ -138,11 +155,12 @@ def _cabi_mum(sequences, min_match_len, use_revcomp, num_distinct,
 
 
 def _cabi_mem(sequences, min_match_len, use_revcomp, num_distinct,
-              max_total_freq, max_doc_freq, device="cuda"):
+              max_total_freq, max_doc_freq, device=None):
     """C-ABI marshalling shim: ragged MEM occurrences flattened with a
-    prefix-offset table."""
+    prefix-offset table. device None: _cabi_device()."""
     r = mem(sequences, min_match_len, bool(use_revcomp), num_distinct,
-            max_total_freq, max_doc_freq, device=device)
+            max_total_freq, max_doc_freq,
+            device=device or _cabi_device())
     recs = r._r.mem_records
     m = len(recs)
     n = r.num_docs()
@@ -171,13 +189,11 @@ def mem(sequences, min_match_len: int = 20, use_revcomp: bool = True,
     if max_doc_freq <= 1:
         raise ValueError(
             "mumemto_mem requires max_doc_freq > 1 (use mumemto_mum for unique matches)")
-    _refuse_seq_shards(seq_shards)
     rb = refbuilder.build_from_sequences(sequences, use_revcomp=use_revcomp)
     if num_distinct == 0:
         num_distinct = rb.num_docs
     opts = MatchOptions(min_match_len=min_match_len, num_distinct=num_distinct,
                         max_doc_freq=max_doc_freq, max_total_freq=max_total_freq,
                         use_revcomp=use_revcomp)
-    results = engine.find_matches(rb, opts, device=device,
-                                  show_progress=False)
+    results = _run(rb, opts, seq_shards, device)
     return MemResult(results, _record_lengths(sequences), rb.num_docs)

@@ -545,12 +545,13 @@ def _expand_and_analyze(parse, d_starts, cumcnt, m: int, total_rows: int,
                            max_doc_freq, size_cap, need_ctx)
 
 
-def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
-             min_match_len: int, num_distinct: int, max_total_freq: int,
-             max_doc_freq: int, size_cap: int | None = None,
-             need_ctx: bool = False, probe_words: int = 2, phase=None):
-    """Full PFP expansion + interval scan on pfp.ext's device; returns
-    (res, counts, nr). `phase(name)` is called after each stage."""
+def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
+                     probe_words: int = 2, phase=None) -> dict:
+    """The dict and parse side of a scan on pfp.ext's device, shared by
+    pfp_scan and the sharded scan (parallel/seqpfp.py): _host_prep's arrays
+    and sizes plus the tables d, grp_of_pos, grp_cross, isaP and slt_table.
+    All of it is dictionary- and parse-sized, small beside the row space;
+    the sharded scan copies it to every device."""
     phase = phase or _noop_phase
     h = _host_prep(pfp, doc_ends)
     d, lcpD, isaD, grp_of_pos, grp_cross = _dict_index(
@@ -562,11 +563,26 @@ def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
     isaP, slt_table = _parse_side(h["parse"], h["cumC"], h["d_starts"],
                                   lcpD, isaD, h["mp"])
     phase("parse_side")
+    h.update({"isaP": isaP, "grp_of_pos": grp_of_pos, "d": d,
+              "slt_table": slt_table, "grp_cross": grp_cross})
+    return h
+
+
+def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
+             min_match_len: int, num_distinct: int, max_total_freq: int,
+             max_doc_freq: int, size_cap: int | None = None,
+             need_ctx: bool = False, probe_words: int = 2, phase=None):
+    """Full PFP expansion + interval scan on pfp.ext's device; returns
+    (res, counts, nr). `phase(name)` is called after each stage."""
+    phase = phase or _noop_phase
+    h = pfp_scan_prepare(pfp, doc_ends, probe_words=probe_words,
+                         phase=phase)
     res, counts = _expand_and_analyze(
         h["parse"], h["d_starts"], h["cumcnt"], h["m"], h["total_rows"],
-        h["n_text"], isaP, grp_of_pos, d, slt_table, grp_cross,
-        h["doc_ends"], h["nr"], h["nd"], h["w"], num_docs, min_match_len,
-        num_distinct, max_total_freq, max_doc_freq, size_cap, need_ctx)
+        h["n_text"], h["isaP"], h["grp_of_pos"], h["d"], h["slt_table"],
+        h["grp_cross"], h["doc_ends"], h["nr"], h["nd"], h["w"], num_docs,
+        min_match_len, num_distinct, max_total_freq, max_doc_freq, size_cap,
+        need_ctx)
     phase("expand_sort_analyze")
     return res, counts, h["nr"]
 

@@ -11,7 +11,8 @@ The reference's scale-out story (README.md:124-142) is operational: run
 Each partition runs the full engine with merge metadata; the outputs are
 combined with the anchor or string merging scheme (analysis/merge.py).
 The invariant merge(partitions) == run-on-union is the tested contract.
-The on-device collective anchor fold is not ported yet.
+collective=True runs the anchor fold on the device
+(parallel/collective_merge.py).
 """
 
 from __future__ import annotations
@@ -73,11 +74,8 @@ def merge_partition_outputs(part_mums, output_prefix: str,
                             collective: bool = False, device="cuda") -> str:
     """Combine partition outputs into output_prefix.mums (single-partition
     degenerates to a rename of every sidecar); a string merge runs its
-    scan on `device`."""
-    if collective:
-        raise NotImplementedError(
-            "the collective merge is not yet ported to mumemto_tpu_torch "
-            "(see ROADMAP.md)")
+    scan on `device`. collective=True: the anchor-merge fold runs on
+    `device` instead of the host."""
     merged = output_prefix + ".mums"
     if len(part_mums) == 1:
         os.replace(part_mums[0], merged)
@@ -87,7 +85,8 @@ def merge_partition_outputs(part_mums, output_prefix: str,
                 os.replace(src, output_prefix + ext)
         return merged
     rc = merge_mod.run(list(part_mums)
-                       + ["-o", output_prefix, "--device", str(device)])
+                       + ["-o", output_prefix, "--device", str(device)]
+                       + (["--collective"] if collective else []))
     if rc != 0:
         raise RuntimeError(f"merge failed with exit code {rc}")
     return merged

@@ -251,20 +251,38 @@ def test_module_entry_point(rng, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--seq-shards", "2"]])
-def test_cli_refuses_unported_flags(tmp_path, capsys, argv):
-    assert t_cli.main(["g.fa", "-o", str(tmp_path / "o"), *argv]) == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not os.path.exists(str(tmp_path / "o.mums"))
+def test_cli_refuses_unported_flags(rng, tmp_path, capsys, argv):
+    """No build flag is refused as unported: --seq-shards runs, with the
+    unsharded run's bytes. What is refused (exit 1, as in the JAX package)
+    is --seq-shards beside -A/-a/-P/-g."""
+    paths = _write_fastas(tmp_path, _docs(rng, 3, False, False))
+    cpu = ["--device", "cpu"]
+    assert t_cli.main(paths + ["-o", str(tmp_path / "o"), *argv, *cpu]) == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    assert t_cli.main(paths + ["-o", str(tmp_path / "single"), *cpu]) == 0
+    with open(str(tmp_path / "o.mums"), "rb") as a, \
+            open(str(tmp_path / "single.mums"), "rb") as b:
+        assert a.read() == b.read() != b""
+    assert t_cli.main(paths + ["-o", str(tmp_path / "g"), *argv, "-g",
+                               *cpu]) == 1
+    assert "--seq-shards is not supported together" in capsys.readouterr().err
+    assert not os.path.exists(str(tmp_path / "g.mums"))
 
 
 def test_cli_refuses_subcommands(tmp_path, capsys):
-    """The subcommands are ported; what is still refused (exit 2, "not
-    yet ported") is merge --collective and --seq-shards."""
-    assert t_cli.main(["merge", "a.mums", "b.mums", "--collective"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """No subcommand or flag exits 2 ("not yet ported"): merge
+    --collective and --seq-shards reach their routes, and fail there on
+    these missing inputs as the JAX package's CLI does (exit 1)."""
+    assert t_cli.main(["merge", "a.mums", "b.mums", "--collective"]) == 1
+    err = capsys.readouterr().err
+    assert "not yet ported" not in err
+    assert "--collective applies to anchor-based merging only" in err
     assert t_cli.main(["g.fa", "-o", str(tmp_path / "o"),
-                       "--seq-shards", "4"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+                       "--seq-shards", "4", "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "not yet ported" not in err
+    assert "Multiple FASTA inputs required" in err
+    assert jax_cli.main(["merge", "a.mums", "b.mums", "--collective"]) == 1
 
 
 # neither jax nor anything of the JAX package (nor its benchmark script)
@@ -284,7 +302,13 @@ def test_port_never_imports_jax(rng, tmp_path):
             " mumemto_tpu_torch.analysis.dispatch, mumemto_tpu_torch.formats,"
             " mumemto_tpu_torch.refbuilder, mumemto_tpu_torch.native,"
             " mumemto_tpu_torch.oracle.naive,"
-            " mumemto_tpu_torch.parallel.mumemtom; " + _NO_JAX)
+            " mumemto_tpu_torch.parallel.mumemtom,"
+            " mumemto_tpu_torch.parallel.mesh,"
+            " mumemto_tpu_torch.parallel.partition,"
+            " mumemto_tpu_torch.parallel.seqpfp,"
+            " mumemto_tpu_torch.parallel.widepfp,"
+            " mumemto_tpu_torch.parallel.collective_merge,"
+            " mumemto_tpu_torch.capi.build_capi; " + _NO_JAX)
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr

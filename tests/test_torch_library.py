@@ -83,9 +83,15 @@ def test_library_errors(rng):
         mres[len(mres)]
     with pytest.raises(ValueError, match="max_doc_freq > 1"):
         library.mem(seqs, max_doc_freq=1, device="cpu")
+    # seq_shards runs the sharded scan: the same records; a count that is
+    # no power of two is refused
+    assert _records(library.mum(seqs, seq_shards=2, device="cpu")) == \
+        _records(res)
+    assert _records(library.mem(seqs, max_doc_freq=2, seq_shards=2,
+                                device="cpu")) == _records(mres)
     for call in (library.mum, library.mem):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call(seqs, seq_shards=2, device="cpu")
+        with pytest.raises(ValueError, match="positive power of two"):
+            call(seqs, seq_shards=3, device="cpu")
 
 
 def test_package_exports_library():

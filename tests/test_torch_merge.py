@@ -96,12 +96,26 @@ def test_merge_subcommand_bytes_match_jax(rng, tmp_path, scheme, flags,
 
 
 def test_merge_collective_refused(rng, tmp_path, capsys):
-    assert t_cli.main(["merge", "a.mums", "b.mums", "--collective",
-                       *CPU]) == 2
-    assert "not yet ported" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        mumemtom.merge_partition_outputs(["a.mums", "b.mums"], "o",
-                                         collective=True, device="cpu")
+    """`merge --collective` and merge_partition_outputs(collective=True)
+    are not refused: both run, with the host anchor fold's bytes."""
+    paths = _fastas(rng, tmp_path, 5)
+    mums = []
+    for i, part in enumerate([paths[:3], [paths[0], *paths[3:]]]):
+        pre = str(tmp_path / f"p{i}")
+        assert t_cli.main(part + ["-o", pre, "-M", "-n", *CPU]) == 0
+        mums.append(pre + ".mums")
+    assert t_cli.main(["merge", *mums, "-o", str(tmp_path / "host"),
+                       *CPU]) == 0
+    assert t_cli.main(["merge", *mums, "-o", str(tmp_path / "coll"),
+                       "--collective", *CPU]) == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    merged = mumemtom.merge_partition_outputs(
+        mums, str(tmp_path / "mm"), collective=True, device="cpu")
+    assert merged == str(tmp_path / "mm.mums")
+    for ext in (".mums", ".athresh", ".lengths"):
+        a = (tmp_path / ("host" + ext)).read_bytes()
+        assert a and (tmp_path / ("coll" + ext)).read_bytes() == a, ext
+        assert (tmp_path / ("mm" + ext)).read_bytes() == a, ext
 
 
 @pytest.mark.parametrize("n_docs,nparts,anchor", [

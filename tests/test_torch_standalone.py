@@ -90,8 +90,32 @@ def test_source_walk_sees_the_copies():
                  "mumemto_tpu_torch/native.py",
                  "mumemto_tpu_torch/oracle/naive.py",
                  "mumemto_tpu_torch/analysis/dispatch.py",
-                 "mumemto_tpu_torch/analysis/viz_interactive.py"):
+                 "mumemto_tpu_torch/analysis/viz_interactive.py",
+                 "mumemto_tpu_torch/parallel/mesh.py",
+                 "mumemto_tpu_torch/parallel/partition.py",
+                 "mumemto_tpu_torch/parallel/seqpfp.py",
+                 "mumemto_tpu_torch/parallel/widepfp.py",
+                 "mumemto_tpu_torch/parallel/collective_merge.py",
+                 "mumemto_tpu_torch/capi/build_capi.py"):
         assert name in rel
+
+
+def test_no_source_imports_torch_distributed():
+    """The sharded scan and the collective merge are single-process
+    programs over a list of devices: no file of the port names
+    torch.distributed."""
+    for path in _port_sources():
+        with open(path) as f:
+            assert "torch.distributed" not in f.read(), path
+
+
+def test_c_abi_source_loads_the_port_only():
+    """The port's C ABI source imports mumemto_tpu_torch.library and never
+    the JAX package's library."""
+    with open(os.path.join(PORT, "capi", "mumemto_capi.cc")) as f:
+        src = f.read()
+    assert '"mumemto_tpu_torch.library"' in src
+    assert '"mumemto_tpu.library"' not in src
 
 
 # --- (2) the port runs with mumemto_tpu and jax unimportable --------------
@@ -118,7 +142,13 @@ def _run_blocked(code, *argv):
 
 def test_every_module_imports_with_jax_package_blocked():
     mods = _port_modules()
-    assert len(mods) >= 35 and "mumemto_tpu_torch.analysis.viz" in mods
+    assert len(mods) >= 40 and "mumemto_tpu_torch.analysis.viz" in mods
+    for name in ("parallel.mesh", "parallel.seqpfp", "parallel.widepfp",
+                 "parallel.collective_merge", "parallel.partition"):
+        assert "mumemto_tpu_torch." + name in mods
+    # capi/ is a directory of sources, not a package (its built .so must
+    # not pass for a Python module); its build script is imported by name
+    mods.append("mumemto_tpu_torch.capi.build_capi")
     code = ("import importlib\n"
             f"for name in {mods!r}:\n"
             "    if not name.endswith('__main__'):\n"
@@ -134,9 +164,10 @@ def test_blocker_blocks():
 
 
 def test_cli_builds_merges_and_views_with_jax_package_blocked(rng, tmp_path):
-    """python -m mumemto_tpu_torch: builds (-M -n partitions and a -b
-    union, --device cpu), then mori, view and merge, each in a fresh
-    process in which mumemto_tpu and jax cannot be imported."""
+    """python -m mumemto_tpu_torch: builds (-M -n partitions, a -b union
+    and a --seq-shards 2 union, --device cpu), then mori, view, merge and
+    merge --collective, each in a fresh process in which mumemto_tpu and
+    jax cannot be imported; then library.mum(seq_shards=2) likewise."""
     base = rand_seq(rng, 420)
     paths = []
     for i in range(3):
@@ -156,15 +187,31 @@ def test_cli_builds_merges_and_views_with_jax_package_blocked(rng, tmp_path):
     pre = [str(tmp_path / "p0"), str(tmp_path / "p1")]
     union = str(tmp_path / "all")
     merged = str(tmp_path / "merged")
+    sharded = str(tmp_path / "sharded")
     for argv in ([paths[0], paths[1], "-o", pre[0], "-M", "-n", *CPU],
                  [paths[0], paths[2], "-o", pre[1], "-M", "-n", *CPU],
                  [*paths, "-o", union, "-b", *CPU],
+                 [*paths, "-o", sharded, "--seq-shards", "2", *CPU],
                  ["mori"], ["view", union + ".bumbl"],
-                 ["merge", pre[0] + ".mums", pre[1] + ".mums", "-o", merged]):
+                 ["merge", pre[0] + ".mums", pre[1] + ".mums", "-o", merged],
+                 ["merge", pre[0] + ".mums", pre[1] + ".mums", "-o",
+                  merged + "_c", "--collective", *CPU]):
         run = _run_blocked(as_module, *argv)
         assert run.returncode == 0, (argv, run.stderr[-3000:])
     assert os.path.getsize(merged + ".mums") > 0
     assert os.path.getsize(merged + ".athresh") > 0
+    for ext in (".mums", ".athresh", ".lengths"):
+        assert _read(merged + "_c" + ext) == _read(merged + ext), ext
+    # the sharded build against the unsharded one of this process
+    assert t_cli.main([*paths, "-o", union + "_1", *CPU]) == 0
+    assert _read(sharded + ".mums") == _read(union + "_1.mums") != b""
+    seqs = [[open(p).read().split("\n")[1]] for p in paths]
+    lib = ("from mumemto_tpu_torch import library\n"
+           f"r = library.mum({seqs!r}, seq_shards=2, device='cpu')\n"
+           "print(len(r))\n" + _CLEAN)
+    run = _run_blocked(lib)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert int(run.stdout) == len(_read(sharded + ".mums").splitlines())
     # the same merge in this process, where the JAX package is importable
     assert t_cli.main(["merge", pre[0] + ".mums", pre[1] + ".mums", "-o",
                        merged + "2"]) == 0
