@@ -58,8 +58,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the fold timed on the card), and a C program (native/test_capi.c
      built against the port's libmumemto_tpu_torch.so) whose lines must
      equal library.mum's, or "capi: skipped" where Python has no shared
-     library or there is no gcc/g++.
-Every path of phases 5-8, 10 and 11 is driven with the kernels' launch counts
+     library or there is no gcc/g++;
+ 12. the sharded dictionary index, the partition mesh program and the
+     multi-process placement: find_matches_seq_sharded(shard_dict=True)
+     with 2, 4 and 8 shards at 8 Mbp, -f 3 and -M with 4 shards and the 32
+     Mbp tier with 8, every shard on the one card (bytes equal to phase
+     5's and 6's; wall, the dict_index stage and the peak beside phase
+     11's run of the same shard count, the counted block sorts), the
+     sharded index's tables against the single-device index's at 8 Mbp;
+     parallel/partition's match program on 4 partitions of 2 x 0.5 Mbp
+     (each partition's bytes equal to the direct backend's, the step's
+     total, the one-collection scan, a WindowCapacityError at M = 4); and
+     parallel/dcn with two worker processes that share the card, gloo over
+     127.0.0.1, on phase 10's FASTAs, host fold and collective fold (files
+     equal to phase 10's MumemtoM anchor run's).
+`python3 chip_smoke.py --cards` is another, shorter program for a machine
+with several cards: the 8-shard scan spread over them with the dictionary
+index on one device and sharded, wall and peak per card (cards_main).
+Every path of phases 5-8 and 10-12 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
 and -a must have launched none. The
@@ -1112,9 +1128,11 @@ def phase_slice(torch, report, res_8mbp, res_f3, work):
     report["slice"] = out
 
 
-def _drive_sharded(torch, label, rb, opts, nshards, want_bytes, M):
+def _drive_sharded(torch, label, rb, opts, nshards, want_bytes, M,
+                   shard_dict=False):
     """One sharded scan on the card, every shard on cuda:0: a cold and a
-    warm find_matches_seq_sharded, each with the kernels' launch counts
+    warm find_matches_seq_sharded (with the dictionary index sharded too
+    when shard_dict), each with the kernels' launch counts
     set to 0 just before and read just after (each must launch the KR
     kernel exactly once and the probe kernel never), the warm one under a
     per-stage timer and a fresh peak-memory counter. The output bytes of
@@ -1122,14 +1140,14 @@ def _drive_sharded(torch, label, rb, opts, nshards, want_bytes, M):
     from mumemto_tpu_torch.parallel import mesh, seqpfp
     devices = mesh.seq_devices(nshards, "cuda")
     cold, cold_s, l_cold = _counted(
-        torch, lambda: seqpfp.find_matches_seq_sharded(rb, opts, devices,
-                                                       M=M))
+        torch, lambda: seqpfp.find_matches_seq_sharded(
+            rb, opts, devices, M=M, shard_dict=shard_dict))
     torch.cuda.reset_peak_memory_stats()
     timer = SumTimer(torch)
     res, wall, l_warm = _counted(
         torch, lambda: seqpfp.find_matches_seq_sharded(
-            rb, opts, devices, M=M, phase=timer))
-    entry = {"label": label, "shards": nshards,
+            rb, opts, devices, M=M, phase=timer, shard_dict=shard_dict))
+    entry = {"label": label, "shards": nshards, "shard_dict": shard_dict,
              "devices": sorted({str(d) for d in devices}),
              "sort_rounds": seqpfp.sort_rounds(nshards), "M": M,
              "matches": res.num_matches, "wall_s": wall,
@@ -1354,6 +1372,471 @@ def phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work):
     report["sharded"] = out
 
 
+class _IndexSpy:
+    """Counts parallel/sharddict's distributed block sorts and records the
+    sizes of each sharded index built while it is active."""
+
+    def __init__(self):
+        from mumemto_tpu_torch.parallel import sharddict
+        self.mod = sharddict
+        self.sorts = 0
+        self.built = []
+
+    def __enter__(self):
+        mod = self.mod
+        self.real = (mod._bitonic_block_sort, mod.compile_sharded_dict_index)
+
+        def sort(blocks, devices, num_keys=2):
+            self.sorts += 1
+            return self.real[0](blocks, devices, num_keys=num_keys)
+
+        def compile_index(devices, nd, ne, w, lvl_cap, lvl_static, *thr):
+            self.built.append({
+                "shards": len(devices), "nd": nd, "lvl_cap": lvl_cap,
+                "lvl_static": lvl_static,
+                "block_sorts_expected": mod.block_sorts(nd, lvl_cap,
+                                                        lvl_static)})
+            return self.real[1](devices, nd, ne, w, lvl_cap, lvl_static,
+                                *thr)
+        mod._bitonic_block_sort = sort
+        mod.compile_sharded_dict_index = compile_index
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._bitonic_block_sort, \
+            self.mod.compile_sharded_dict_index = self.real
+
+
+def _shard_dict_scans(torch, out, phase11, res_8mbp, res_f3, mums_32mbp):
+    """find_matches_seq_sharded(shard_dict=True) at this slice's full
+    width, every shard on cuda:0, each beside phase 11's run of the same
+    configuration with the index on one device."""
+    from mumemto_tpu_torch import engine, options
+    rb = _bench_rb(8)
+    opts = options.normalize(N_DOCS, quiet=True)
+    opts_f3 = options.normalize(N_DOCS, rare_freq=3, max_mem_freq=0,
+                                quiet=True)
+    opts_m = options.normalize(N_DOCS, merge=True, quiet=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        files_m = _written(engine, rb, opts_m, "cuda", tmp, "single")
+    configs = [(f"MUM 8 Mbp, {n} shards", rb, opts, n,
+                res_8mbp.output_bytes(), 8192, EXPECT_8MBP)
+               for n in (2, 4, 8)]
+    configs += [("-f 3 8 Mbp, 4 shards", rb, opts_f3, 4,
+                 res_f3.output_bytes(), 1 << 16, EXPECT_F3_8MBP),
+                ("-M 8 Mbp, 4 shards", rb, opts_m, 4, files_m[".mums"],
+                 1 << 20, EXPECT_8MBP),
+                ("MUM 32 Mbp, 8 shards", None, opts, 8, mums_32mbp, 8192,
+                 EXPECT_32MBP)]
+    for label, crb, copts, nshards, want, M, expect in configs:
+        crb = crb if crb is not None else _bench_rb(32)
+        with _IndexSpy() as spy:
+            entry, res = _drive_sharded(torch, label + ", shard_dict", crb,
+                                        copts, nshards, want, M,
+                                        shard_dict=True)
+        if entry["matches"] != expect:
+            raise AssertionError(f"{label}, shard_dict: {entry['matches']} "
+                                 f"matches, expected {expect}")
+        if copts.merge:
+            with tempfile.TemporaryDirectory() as tmp:
+                engine.write_outputs(res, crb, os.path.join(tmp, "sd"))
+                for ext in (".thresh", ".thresh_rev"):
+                    with open(os.path.join(tmp, "sd" + ext), "rb") as fh:
+                        if fh.read() != files_m[ext] or not files_m[ext]:
+                            raise AssertionError(
+                                f"{label}, shard_dict: {ext} != the "
+                                "single-device run's")
+        # a cold and a warm run: two indexes of the same sizes
+        built = spy.built
+        if len(built) != 2 or built[0] != built[1] or \
+                spy.sorts != 2 * built[0]["block_sorts_expected"]:
+            raise AssertionError(f"{label}, shard_dict: {spy.sorts} block "
+                                 f"sorts for {built}")
+        before = phase11[label]
+        entry.update(built[0], block_sorts=spy.sorts // 2,
+                     replicated={
+                         "wall_s": before["wall_s"],
+                         "dict_index_s": before["stages_s"]["dict_index"],
+                         "peak_alloc_bytes": before["peak_alloc_bytes"]})
+        log(f"[shard_dict] {label}: wall {entry['wall_s']:.3f} s "
+            f"(index on one device {before['wall_s']:.3f}), dict_index "
+            f"{entry['stages_s']['dict_index']:.3f} s "
+            f"({before['stages_s']['dict_index']:.3f}), peak "
+            f"{entry['peak_alloc_bytes'] / 2**30:.2f} GiB "
+            f"({before['peak_alloc_bytes'] / 2**30:.2f}), nd {entry['nd']}, "
+            f"lvl_cap {entry['lvl_cap']}, {entry['block_sorts']} block sorts")
+        out["scans"][label] = entry
+        out["paths"][label + ", shard_dict"] = entry["launches"]
+        del res
+
+
+def _shard_dict_tables(torch, out):
+    """The sharded index's tables against the single-device index's on the
+    8 Mbp dictionary, in the form that does not depend on the order inside
+    a tie block: d, grp_of_pos, grp_cross exactly, lcpD clamped at
+    maxlen + 1, isaD at whole-phrase starts."""
+    from mumemto_tpu_torch import engine
+    from mumemto_tpu_torch.ops import pfp as ops_pfp
+    from mumemto_tpu_torch.parallel import mesh, sharddict
+    rb = _bench_rb(8)
+    dev = engine.resolve("cuda")
+    pfp = ops_pfp.build_pfp(rb.text, dev)
+    h = ops_pfp._host_prep(pfp, rb.doc_ends)
+    arrays = (pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
+              h["npz"], h["total_real"])
+    static = (h["nd"], h["ne"], h["w"], h["lvl_cap"], h["lvl_static"],
+              h["seed_thr"], h["lcp_thr"])
+    clamp = int(pfp.phrase_ln.max()) + 1
+    starts = h["d_starts"][1:h["npz"] + 1].long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ops_pfp._dict_index(*arrays, *static)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    entry = {"nd": h["nd"], "lvl_cap": h["lvl_cap"],
+             "lvl_static": h["lvl_static"], "clamp": clamp,
+             "phrases": h["npz"], "single_device_s": ref_s, "shards": {}}
+    for nshards in (1, 4):
+        fn = sharddict.compile_sharded_dict_index(
+            mesh.seq_devices(nshards, "cuda"), *static)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn(*arrays)
+        torch.cuda.synchronize()
+        entry["shards"][nshards] = {
+            "s": time.perf_counter() - t0,
+            "peak_alloc_bytes": torch.cuda.max_memory_allocated()}
+        same = {
+            "d": torch.equal(ref[0], got[0]),
+            "lcpD clamped": torch.equal(torch.clamp(ref[1], max=clamp),
+                                        torch.clamp(got[1], max=clamp)),
+            "isaD at phrase starts": torch.equal(ref[2][starts],
+                                                 got[2][starts]),
+            "grp_of_pos": torch.equal(ref[3], got[3]),
+            "grp_cross": torch.equal(ref[4], got[4])}
+        if not all(same.values()):
+            raise AssertionError(f"sharded index, {nshards} shards != the "
+                                 f"single-device index: {same}")
+        del got
+    log(f"[shard_dict] tables 8 Mbp == single-device index: "
+        f"{json.dumps(entry)}")
+    out["tables 8 Mbp"] = entry
+
+
+def _partition_mesh(torch, out):
+    """parallel/partition on 4 partitions of 2 documents x 0.5 Mbp: each
+    partition's windows through the writer against the direct backend's
+    bytes, the step's total, the one-collection scan, the capacity error."""
+    import numpy as np
+    from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.parallel import partition
+    num_docs, M = 2, 1 << 14
+    rbs = [_bench_rb(1, seed=seed, n_docs=num_docs) for seed in range(4)]
+    n = engine.pad_size(max(int(rb.text.size) for rb in rbs))
+    texts = np.zeros((len(rbs), n), np.uint8)
+    doc_ends = np.zeros((len(rbs), num_docs), np.int32)
+    for p, rb in enumerate(rbs):
+        texts[p, :rb.text.size] = rb.text
+        doc_ends[p] = rb.doc_ends
+    mesh = partition.make_mesh(4)
+    fn = partition.compile_partitioned_matches(mesh, num_docs, M=M)
+    torch.cuda.reset_peak_memory_stats()
+    got, s, launches = _counted(torch, lambda: fn(texts, doc_ends))
+    peak = torch.cuda.max_memory_allocated()
+    counts, ps, pe, pL, w_sa, w_da = (x.cpu().numpy() for x in got)
+    opts = options.normalize(num_docs, quiet=True)
+    matches, sizes = [], []
+    for p, rb in enumerate(rbs):
+        m = int(counts[p])
+        results = engine.MatchResults(opts=opts, num_docs=num_docs)
+        doc_offsets, doc_lens = engine._doc_metadata(rb, opts)
+        valid = (ps[p, :m, None] + np.arange(num_docs)) < pe[p, :m, None]
+        engine._emit_mums(results, ps[p, :m], pe[p, :m], pL[p, :m],
+                          w_sa[p, :m], w_da[p, :m].astype(np.int32), valid,
+                          opts, doc_offsets, doc_lens, num_docs)
+        want = engine.find_matches(rb, opts, backend="direct", device="cuda")
+        if results.output_bytes() != want.output_bytes() or \
+                not want.num_matches:
+            raise AssertionError(f"partition {p}: bytes != the direct "
+                                 "backend's")
+        matches.append(want.num_matches)
+        sizes.append(len(want.output_bytes()))
+    step = partition.compile_partitioned_step(mesh, texts.shape, num_docs)
+    (total, step_counts, longest), step_s, l_step = _counted(
+        torch, lambda: step(texts, doc_ends))
+    if int(total) != int(counts.sum()) or \
+            step_counts.cpu().tolist() != counts.tolist():
+        raise AssertionError(f"partitioned step: total {int(total)}, "
+                             f"counts {counts.tolist()}")
+    scan = partition.compile_sharded_scan(mesh, n, num_docs, M=M)
+    one, scan_s, l_scan = _counted(torch, lambda: scan(texts[0],
+                                                       doc_ends[0]))
+    m0 = int(counts[0])
+    valid = (ps[0, :m0, None] + np.arange(num_docs)) < pe[0, :m0, None]
+    row0 = [ps[0, :m0], pe[0, :m0], pL[0, :m0], w_sa[0, :m0][valid],
+            w_da[0, :m0][valid]]
+    mine = [x.cpu().numpy()[:m0] for x in one[1:]]
+    mine[3], mine[4] = mine[3][valid], mine[4][valid]
+    if int(one[0][0]) != m0 or not all(
+            np.array_equal(a, b) for a, b in zip(row0, mine)):
+        raise AssertionError("compile_sharded_scan on partition 0 != row 0 "
+                             "of the match program")
+    try:
+        partition.compile_partitioned_matches(mesh, num_docs, M=4)(
+            texts, doc_ends)
+    except partition.WindowCapacityError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("M = 4 raised no WindowCapacityError")
+    for what, got_l in (("match program", launches), ("step", l_step),
+                        ("one-collection scan", l_scan)):
+        if any(got_l.values()):
+            raise AssertionError(f"partition {what} launched kernels: "
+                                 f"{got_l}")
+    out["partition mesh"] = {
+        "mesh_shape": list(mesh.shape), "axis_names": list(mesh.axis_names),
+        "partitions": len(rbs), "docs": num_docs, "n": n, "M": M,
+        "counts": counts.tolist(), "matches": matches, "mums_bytes": sizes,
+        "longest": longest.cpu().tolist(), "total": int(total),
+        "matches_s": s, "step_s": step_s, "sharded_scan_s": scan_s,
+        "peak_alloc_bytes": peak, "launches": launches, "refused": refused}
+    log(f"[partition] {json.dumps(out['partition mesh'])}")
+
+
+_DCN_WORKER = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[5])
+from mumemto_tpu_torch.kernels import kr_mask, probe
+from mumemto_tpu_torch.parallel import dcn, mumemtom
+rank, port, prefix = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+files = open(sys.argv[4]).read().split()
+collective = sys.argv[6] == "1"
+scanned = []
+real = mumemtom.scan_partition
+def scan(pfiles, pfx, **kw):
+    scanned.append(int(pfx.rsplit("_part", 1)[1]))
+    return real(pfiles, pfx, **kw)
+mumemtom.scan_partition = scan
+kr_mask.launches = probe.launches = 0
+dcn.initialize("127.0.0.1:" + port, 2, rank)
+t1 = time.perf_counter()
+dcn.run_partitioned_dcn(files, prefix, anchor=True, num_partitions=2,
+                        collective=collective, device="cuda")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "mumemto_tpu", "bench"))
+assert not bad, bad
+print("DCN_WORKER " + json.dumps({
+    "rank": rank, "scanned": scanned, "kr_break_mask": kr_mask.launches,
+    "add_one": probe.launches, "start_s": t1 - t0,
+    "run_s": time.perf_counter() - t1}))
+"""
+
+
+def _dcn_pair(worker, prefix, filelist, collective, env):
+    """Two workers of one gloo group on a free port of 127.0.0.1, run to
+    their end: (the processes, each one's (stdout, stderr))."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(rank), str(port), prefix, filelist,
+         ROOT, "1" if collective else "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for rank in (0, 1)]
+    ends = []
+    try:
+        for p in procs:
+            ends.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return procs, ends
+
+
+def _dcn_pairs(out, work, anchor_s):
+    """parallel/dcn with two worker processes that share the card: gloo
+    over 127.0.0.1 on a free port, phase 10's 8 FASTAs, anchor partitions,
+    the host fold and the collective fold. Each run's files must equal
+    phase 10's MumemtoM anchor run's, which are in `work`."""
+    fastas = [os.path.join(work, f"d{i}.fa") for i in range(N_DOCS)]
+    filelist = os.path.join(work, "dcn_files.txt")
+    with open(filelist, "w") as fh:
+        fh.write("\n".join(fastas))
+    worker = os.path.join(work, "dcn_worker.py")
+    with open(worker, "w") as fh:
+        fh.write(_DCN_WORKER)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    for k in ("MUMEMTO_COORDINATOR", "MUMEMTO_NUM_PROCESSES",
+              "MUMEMTO_PROCESS_ID", "MUMEMTO_SHARD_DICT"):
+        env.pop(k, None)
+    out["dcn"] = {"single_process_anchor_s": anchor_s}
+    for collective in (False, True):
+        label = "dcn collective" if collective else "dcn host fold"
+        prefix = os.path.join(work, label.replace(" ", "_"))
+        # one retry on a fresh port: another job on the machine can take
+        # the port between its probe and the workers' bind, and a loaded
+        # host can miss gloo's connect window; a real fault shows again
+        for attempt in (0, 1):
+            t0 = time.perf_counter()
+            procs, ends = _dcn_pair(worker, prefix, filelist, collective, env)
+            wall = time.perf_counter() - t0
+            if all(p.returncode == 0 for p in procs):
+                break
+            log(f"[dcn] {label}: attempt {attempt} exited "
+                f"{[p.returncode for p in procs]}: "
+                f"{' | '.join(se[-600:] for _so, se in ends)}")
+        ranks = []
+        for rank, (p, (so, se)) in enumerate(zip(procs, ends)):
+            lines = [ln for ln in so.splitlines()
+                     if ln.startswith("DCN_WORKER ")]
+            if p.returncode != 0 or len(lines) != 1:
+                raise AssertionError(f"{label}: rank {rank} exited "
+                                     f"{p.returncode}: {so[-1000:]} "
+                                     f"{se[-3000:]}")
+            rec = json.loads(lines[0][len("DCN_WORKER "):])
+            if rec["scanned"] != [rank] or rec["kr_break_mask"] != 1 or \
+                    rec["add_one"]:
+                raise AssertionError(f"{label}: rank {rank} reports {rec}")
+            ranks.append(rec)
+        sizes = {}
+        for ext in (".mums", ".athresh", ".lengths"):
+            with open(prefix + ext, "rb") as a, \
+                    open(os.path.join(work, "anchor" + ext), "rb") as b:
+                ga, gb = a.read(), b.read()
+            if ga != gb or not ga:
+                raise AssertionError(f"{label}: {ext} != the single-process "
+                                     "MumemtoM anchor run's")
+            sizes[ext] = len(ga)
+        out["dcn"][label] = {"wall_s": wall, "ranks": ranks, "sizes": sizes}
+        log(f"[dcn] {label}: pair {wall:.3f} s beside {anchor_s:.3f} s in "
+            f"one process; {json.dumps(out['dcn'][label])}")
+        out["paths"][label] = {
+            "kr_break_mask": sum(r["kr_break_mask"] for r in ranks),
+            "add_one": sum(r["add_one"] for r in ranks)}
+
+
+def phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work):
+    """The sharded dictionary index, the partition mesh program and the
+    multi-process placement on one card. Every comparison is of bytes or
+    of exact tables, and any mismatch raises."""
+    out = {"paths": {}, "scans": {}}
+    _shard_dict_scans(torch, out, report["sharded"]["scans"], res_8mbp,
+                      res_f3, mums_32mbp)
+    _shard_dict_tables(torch, out)
+    _partition_mesh(torch, out)
+    torch.cuda.empty_cache()
+    _dcn_pairs(out, work, report["slice"]["mumemtom anchor"]["s"])
+    report["modules"] = out
+
+
+def _sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+class _AllCardsTimer(SumTimer):
+    """A SumTimer that waits for every visible card, not the current one,
+    and keeps each card's peak allocation within each stage."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.stage_peaks = {}
+
+    def __call__(self, name):
+        torch = self.torch
+        _sync_all(torch)
+        super().__call__(name)
+        before = self.stage_peaks.get(name, [0] * torch.cuda.device_count())
+        self.stage_peaks[name] = [
+            max(b, torch.cuda.max_memory_allocated(i))
+            for i, b in enumerate(before)]
+        for i in range(len(before)):
+            torch.cuda.reset_peak_memory_stats(i)
+
+
+def cards_main() -> int:
+    """`python3 chip_smoke.py --cards`: the sharded scan with its 8 shards
+    spread over every visible card (two a card on four), the dictionary
+    index on one device and sharded, in the order off, on, on, off; per
+    run the wall, the stages and each card's peak, over the run and within
+    each stage (dict_index above all). MUM 8 Mbp and
+    MUM 32 Mbp (nr = 2^26); the bytes must equal a single-device run's.
+    Writes chiprun_out/chip_smoke_cards.json."""
+    sys.path.insert(0, ROOT)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.parallel import mesh, seqpfp
+    ncards = torch.cuda.device_count()
+    report = {"card": _smi(), "cards": ncards, "runs": []}
+    phase_build(report)
+    opts = options.normalize(N_DOCS, quiet=True)
+    nshards = 8
+    devices = mesh.seq_devices(nshards, "cuda")
+
+    def peaks():
+        return [torch.cuda.max_memory_allocated(i) for i in range(ncards)]
+
+    for mbp, expect in ((8, EXPECT_8MBP), (32, EXPECT_32MBP)):
+        rb = _bench_rb(mbp)
+        engine.find_matches(rb, opts, device="cuda")        # warm-up
+        for i in range(ncards):
+            torch.cuda.reset_peak_memory_stats(i)
+        t0 = time.perf_counter()
+        single = engine.find_matches(rb, opts, device="cuda")
+        _sync_all(torch)
+        entry = {"mbp": mbp, "shards": 1, "shard_dict": False,
+                 "wall_s": time.perf_counter() - t0,
+                 "peak_alloc_bytes": peaks()}
+        report["runs"].append(entry)
+        log(f"[cards] {json.dumps(entry)}")
+        want = single.output_bytes()
+        if single.num_matches != expect:
+            raise AssertionError(f"{mbp} Mbp: {single.num_matches} matches")
+        del single
+        for shard_dict in (False, True):                    # warm-up
+            seqpfp.find_matches_seq_sharded(rb, opts, devices, M=8192,
+                                            shard_dict=shard_dict)
+        for shard_dict in (False, True, True, False):
+            for i in range(ncards):
+                torch.cuda.reset_peak_memory_stats(i)
+            _sync_all(torch)
+            timer = _AllCardsTimer(torch)
+            t0 = time.perf_counter()
+            res = seqpfp.find_matches_seq_sharded(
+                rb, opts, devices, M=8192, phase=timer,
+                shard_dict=shard_dict)
+            _sync_all(torch)
+            entry = {"mbp": mbp, "shards": nshards,
+                     "devices": [str(d) for d in devices],
+                     "shard_dict": shard_dict,
+                     "wall_s": time.perf_counter() - t0,
+                     "stages_s": timer.stages,
+                     "stage_peak_alloc_bytes": timer.stage_peaks,
+                     "peak_alloc_bytes": [
+                         max(p) for p in zip(*timer.stage_peaks.values())],
+                     "matches": res.num_matches}
+            report["runs"].append(entry)
+            log(f"[cards] {json.dumps(entry)}")
+            if res.output_bytes() != want:
+                raise AssertionError(f"{mbp} Mbp, shard_dict={shard_dict}: "
+                                     "bytes != the single-device run's")
+            del res
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cards.json"),
+              "w") as f:
+        json.dump(report, f, indent=1)
+    log(report["card"])
+    log(json.dumps({"ok": True, "cards": ncards}))
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "mumemto_tpu_torch")):
         print("chip_smoke: mumemto_tpu_torch not found beside this script; "
@@ -1379,6 +1862,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         phase_slice(torch, report, res_8mbp, res_f3, work)
         phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work)
+        phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
     if foreign:
@@ -1394,6 +1878,7 @@ def main() -> int:
             "-P -p" if label in ("-P", "-p") else "-A -a"][label + "_launches"]
     report["path_launches"].update(report["slice"]["paths"])
     report["path_launches"].update(report["sharded"]["paths"])
+    report["path_launches"].update(report["modules"]["paths"])
     pr = report["probe"]
     # add_one's bound: the (8, 128) int32 tile read once and written once
     probe_bound_ms = 2 * 8 * 128 * 4 / HBM_BYTES_PER_S * 1e3
@@ -1425,7 +1910,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = cards_main() if sys.argv[1:] == ["--cards"] else main()
     except Exception:  # any failed phase: report it and exit non-zero
         traceback.print_exc()
         rc = 1

@@ -73,3 +73,29 @@ def from_jax_prepare(prep: dict, device) -> dict:
         slt = np.asarray(slt).reshape(-1, out["mp"])
     out["slt_table"] = [_tensor(level, torch.int32, device) for level in slt]
     return out
+
+
+def from_jax_dict_args(pfp, h: dict, device):
+    """The dictionary index's arguments for a JAX PFPData `pfp` and its
+    ops.pfp._host_prep dict `h`, so both packages' indexes see the same
+    ext, phrase arrays, sizes, depths and thresholds. Returns (arrays,
+    static): ops.pfp._dict_index(*arrays, *static), and
+    sharddict.compile_sharded_dict_index(devices, *static)(*arrays);
+    arrays = (ext, phrase_st, phrase_ln, d_starts, npz, total) with the
+    tensors on `device`, static = (nd, ne, w, lvl_cap, lvl_static,
+    seed_thr, lcp_thr)."""
+    arrays = (_tensor(pfp.ext, torch.uint8, device),
+              *(_tensor(h[k], torch.int32, device)
+                for k in ("phrase_st", "phrase_ln", "d_starts")),
+              int(h["npz"]), int(h["total_real"]))
+    static = (*(int(h[k]) for k in ("nd", "ne", "w", "lvl_cap",
+                                    "lvl_static")),
+              h["seed_thr"], h["lcp_thr"])
+    return arrays, static
+
+
+def dict_tables_to_numpy(tables) -> tuple:
+    """The index's five tables (d, lcpD, isaD, grp_of_pos, grp_cross), the
+    port's tensors or the JAX package's arrays, as numpy arrays."""
+    return tuple(t.cpu().numpy() if isinstance(t, torch.Tensor)
+                 else np.asarray(t) for t in tables)

@@ -484,12 +484,22 @@ def _expand_operands(parse, d_starts, cumcnt, m: int, total_rows: int,
     return key1, key2, ssa, suf_len, bwt, da_by_pos, crossv
 
 
-def _sort_rows(ops):
-    """Stable sort of the row operands by (key1, key2): key1 in [-1, nd),
-    key2 in [0, mp), so ((key1+1) << 32) | key2 is an exact int64 key and
-    pads (key1 = -1) sort first."""
-    key1, key2 = ops[0], ops[1]
-    key = ((key1.to(I64) + 1) << 32) | key2.to(I64)
+def _sort_rows(ops, num_keys: int = 2):
+    """Stable sort of a row-operand tuple by its first num_keys operands,
+    through one exact int64 key. Two keys: key1 in [-1, 2^31 - 1) and key2
+    in [-1, 2^32 - 1), packed as ((key1 + 1) << 32) | (key2 + 1), so a -1
+    sorts first: the pads of the expansion rows (key1 = -1; key1 < nd, key2
+    in [0, mp)), a rank shifted past the end (parallel/sharddict.py). One
+    key: any int32 or int64 operand, taken as it is."""
+    if num_keys == 1:
+        key = ops[0].to(I64)
+    elif num_keys == 2:
+        # in place: the row space sets the scan's peak, so no temporary
+        # beyond the two int64 copies
+        key = ops[0].to(I64, copy=True).add_(1).bitwise_left_shift_(32)
+        key.bitwise_or_(ops[1].to(I64, copy=True).add_(1))
+    else:
+        raise ValueError(f"num_keys must be 1 or 2, got {num_keys}")
     perm = torch.sort(key, stable=True).indices
     return tuple(op[perm] for op in ops)
 
@@ -546,19 +556,35 @@ def _expand_and_analyze(parse, d_starts, cumcnt, m: int, total_rows: int,
 
 
 def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
-                     probe_words: int = 2, phase=None) -> dict:
+                     probe_words: int = 2, phase=None,
+                     dict_devices: list | None = None) -> dict:
     """The dict and parse side of a scan on pfp.ext's device, shared by
     pfp_scan and the sharded scan (parallel/seqpfp.py): _host_prep's arrays
     and sizes plus the tables d, grp_of_pos, grp_cross, isaP and slt_table.
     All of it is dictionary- and parse-sized, small beside the row space;
-    the sharded scan copies it to every device."""
+    the sharded scan copies it to every device.
+
+    dict_devices: a mesh (parallel/mesh.py, its first device pfp.ext's) to
+    build the dict index distributed over it (parallel/sharddict.py); the
+    tables are the same (the tie-order argument is in that module).
+    probe_words belongs to the replicated index alone: the sharded one
+    takes the rank descent and has no probe."""
     phase = phase or _noop_phase
     h = _host_prep(pfp, doc_ends)
-    d, lcpD, isaD, grp_of_pos, grp_cross = _dict_index(
-        pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"], h["npz"],
-        h["total_real"], h["nd"], h["ne"], h["w"], h["lvl_cap"],
-        h["lvl_static"], h["seed_thr"], h["lcp_thr"],
-        probe_words=probe_words)
+    if dict_devices is not None:
+        from mumemto_tpu_torch.parallel import sharddict
+        fn = sharddict.compile_sharded_dict_index(
+            dict_devices, h["nd"], h["ne"], h["w"], h["lvl_cap"],
+            h["lvl_static"], h["seed_thr"], h["lcp_thr"])
+        d, lcpD, isaD, grp_of_pos, grp_cross = fn(
+            pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
+            h["npz"], h["total_real"])
+    else:
+        d, lcpD, isaD, grp_of_pos, grp_cross = _dict_index(
+            pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
+            h["npz"], h["total_real"], h["nd"], h["ne"], h["w"],
+            h["lvl_cap"], h["lvl_static"], h["seed_thr"], h["lcp_thr"],
+            probe_words=probe_words)
     phase("dict_index")
     isaP, slt_table = _parse_side(h["parse"], h["cumC"], h["d_starts"],
                                   lcpD, isaD, h["mp"])

@@ -89,6 +89,15 @@ def _select_ordered(mask: torch.Tensor, e: torch.Tensor, lcp: torch.Tensor,
     return torch.cat([ordered, pad])
 
 
+def _first_m(mask: torch.Tensor, M: int) -> torch.Tensor:
+    """mask with only its first M set rows kept, for a fixed-capacity
+    compaction: the counts are reported whole, and the caller refuses an
+    overflow afterwards (parallel/partition._check_capacity)."""
+    if int(mask.sum()) <= M:
+        return mask
+    return mask & (torch.cumsum(mask, 0) <= M)
+
+
 def _da_dtype(num_docs: int):
     """Doc-id window dtype: int16 when every id incl. the num_docs pad
     sentinel fits."""

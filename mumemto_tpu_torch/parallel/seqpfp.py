@@ -24,14 +24,16 @@ entry point, the block-bitonic sort (stage B) and the host assembly:
 The JAX module's second formulation (one logical array program under the
 SPMD partitioner, compile_seq_pfp_step) is a test oracle there, measured
 quadratic in the row count, and is not ported; nor are its force_gspmd and
-wide arguments. Distributing the dictionary index too (shard_dict=True) is
-not yet ported.
+wide arguments. shard_dict=True (or MUMEMTO_SHARD_DICT=1) distributes the
+dictionary index over the mesh too (parallel/sharddict.py).
 
 Output bytes equal the single-device engine's across shard counts and
 modes (tests/test_torch_seqpfp.py).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -47,10 +49,12 @@ def sort_rounds(nshards: int) -> int:
     return p * (p + 1) // 2
 
 
-def _bitonic_block_sort(blocks: list, devices: list) -> list:
+def _bitonic_block_sort(blocks: list, devices: list,
+                        num_keys: int = 2) -> list:
     """Globally sort equal blocks of a multi-operand row sequence, one
     block per shard: blocks[i] is shard i's operand tuple on devices[i],
-    and the first two operands are the keys (ops/pfp._sort_rows).
+    and the first num_keys operands are the keys (ops/pfp._sort_rows; the
+    default is the expansion rows' (group id, parse rank)).
 
     The classic merge-split block-bitonic network (a block
     compare-exchange sorts the concatenated pair and keeps one half);
@@ -65,14 +69,14 @@ def _bitonic_block_sort(blocks: list, devices: list) -> list:
     always comes first. Two partners on one device sort the pair once and
     take a half each."""
     nshards = len(blocks)
-    blocks = [ops_pfp._sort_rows(ops) for ops in blocks]
+    blocks = [ops_pfp._sort_rows(ops, num_keys) for ops in blocks]
     if nshards == 1:
         return blocks
     B = blocks[0][0].shape[0]
 
     def merged(lo_ops, hi_ops):
         return ops_pfp._sort_rows(tuple(
-            torch.cat([a, b]) for a, b in zip(lo_ops, hi_ops)))
+            torch.cat([a, b]) for a, b in zip(lo_ops, hi_ops)), num_keys)
 
     p = nshards.bit_length() - 1
     for k in range(1, p + 1):
@@ -112,7 +116,7 @@ def _bitonic_block_sort(blocks: list, devices: list) -> list:
 def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
                              pfp_mod: int = 100, M: int = 4096,
                              parse_prefix: str | None = None,
-                             shard_dict: bool = False, phase=None):
+                             shard_dict: bool | None = None, phase=None):
     """engine.find_matches over the mesh `devices` (one torch device per
     shard, parallel/mesh.seq_devices; PFP backend), with output bytes
     equal to the single-device engine's. parse_prefix resumes from
@@ -123,6 +127,9 @@ def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
     ops/intervals.py, whose touch set fits the size_cap + 1 halo). M is
     the per-shard capacity of the match windows; a shard with more
     matches raises WindowCapacityError naming the M that is needed.
+    shard_dict builds the dictionary index distributed over the mesh
+    (parallel/sharddict.py) instead of on devices[0] alone, with the same
+    output; None reads the environment: MUMEMTO_SHARD_DICT=1 turns it on.
     `phase(name)` is called after each stage (build_pfp or read_parse,
     dict_index, parse_side, operands, sort, then analyze and compact per
     shard, assemble); without one, engine._phase_logger's hook is."""
@@ -130,11 +137,8 @@ def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
     from mumemto_tpu_torch.parallel import widepfp
 
     pmesh.check_shards(len(devices))
-    if shard_dict:
-        raise NotImplementedError(
-            "shard_dict=True (the dictionary index distributed over the "
-            "mesh, parallel/sharddict) is not yet ported to "
-            "mumemto_tpu_torch (see ROADMAP.md)")
+    if shard_dict is None:
+        shard_dict = os.environ.get("MUMEMTO_SHARD_DICT") == "1"
     size_cap = engine.interval_size_cap(opts, rb.num_docs)
     if size_cap is None or size_cap > 4096:
         raise ValueError("seq-sharded scan requires a bounded interval "
@@ -148,7 +152,7 @@ def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
         pfp = ops_pfp.build_pfp(rb.text, devices[0], w=pfp_w, mod=pfp_mod)
         phase("build_pfp")
     return widepfp.find_matches_wide(rb, opts, devices, M=M, pfp=pfp,
-                                     phase=phase)
+                                     phase=phase, shard_dict=shard_dict)
 
 
 def _assemble_results(rb, opts, counts, win: dict, nshards: int, M: int):

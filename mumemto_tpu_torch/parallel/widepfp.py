@@ -241,15 +241,6 @@ def _analyze_block(haloed_ops, slt_table, i: int, B: int, H: int,
 # stage D: per-shard window compaction
 # ---------------------------------------------------------------------------
 
-def _first_m(mask, M: int):
-    """mask with only its first M set rows kept. The per-shard counts are
-    reported whole, and the host refuses an overflow afterwards
-    (partition._check_capacity)."""
-    if int(mask.sum()) <= M:
-        return mask
-    return mask & (torch.cumsum(mask, 0) <= M)
-
-
 def _compact_block(res, ssa_pad, da_pad, base: int, B: int, H: int, M: int,
                    num_docs: int, mem_mode: bool, need_ctx: bool) -> dict:
     """Stage D: pop-ordered window compaction in pad coordinates; the
@@ -269,7 +260,7 @@ def _compact_block(res, ssa_pad, da_pad, base: int, B: int, H: int, M: int,
         return cols, torch.clamp(cols, 0, B2 - 1)
 
     idx = ops_pipeline._select_ordered(
-        _first_m(res["emit"], M), res["e"], res["L"], B2, M)
+        ops_pipeline._first_m(res["emit"], M), res["e"], res["L"], B2, M)
     s = res["s"][idx]
     _, colc = window_cols(s)
     out = {
@@ -286,7 +277,7 @@ def _compact_block(res, ssa_pad, da_pad, base: int, B: int, H: int, M: int,
         out["w_prev"] = torch.where(prev >= 0, to_global(prev), -1)[colc]
     if need_ctx:
         cidx = ops_pipeline._select_ordered(
-            _first_m(res["cand"], M), res["e"], res["L"], B2, M)
+            ops_pipeline._first_m(res["cand"], M), res["e"], res["L"], B2, M)
         cs = res["s"][cidx]
         ce = res["e"][cidx]
         cols, ccolc = window_cols(cs)
@@ -374,11 +365,13 @@ def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
 
 
 def find_matches_wide(rb, opts, devices: list, pfp, M: int = 4096,
-                      phase=None):
+                      phase=None, shard_dict: bool = False):
     """engine.find_matches over the mesh `devices` (parallel/mesh.py), with
     output bytes equal to the single-device engine's. pfp: the collection's
     PFPData with ext on devices[0] (seqpfp.find_matches_seq_sharded, the
-    entry point, builds or reloads it)."""
+    entry point, builds or reloads it). shard_dict: build the dict index
+    distributed over the same mesh (parallel/sharddict.py); its tables come
+    back whole on devices[0], and the block stages take them unchanged."""
     from mumemto_tpu_torch import engine
 
     phase = phase or ops_pfp._noop_phase
@@ -387,7 +380,9 @@ def find_matches_wide(rb, opts, devices: list, pfp, M: int = 4096,
         raise ValueError("block scan requires a bounded interval size "
                          "cap <= 4096 (finite f/F; collections up to "
                          "4096 docs in strict-MUM terms)")
-    prep = ops_pfp.pfp_scan_prepare(pfp, rb.doc_ends, phase=phase)
+    prep = ops_pfp.pfp_scan_prepare(
+        pfp, rb.doc_ends, phase=phase,
+        dict_devices=devices if shard_dict else None)
     nshards = len(devices)
     M = min(M, prep["nr"] // nshards)
     counts, windows = wide_step(

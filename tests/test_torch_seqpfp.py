@@ -224,8 +224,10 @@ def test_refusals(rng):
         widepfp.find_matches_wide(rb, opts, devs,
                                   t_pfp.build_pfp(rb.text, CPU))
     opts = options.normalize(rb.num_docs, quiet=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        seqpfp.find_matches_seq_sharded(rb, opts, devs, shard_dict=True)
+    # shard_dict=True is no refusal: the same bytes as the plain call
+    assert seqpfp.find_matches_seq_sharded(
+        rb, opts, devs, shard_dict=True).output_bytes() == \
+        seqpfp.find_matches_seq_sharded(rb, opts, devs).output_bytes() != b""
     with pytest.raises(ValueError, match="positive power of two"):
         seqpfp.find_matches_seq_sharded(rb, opts, [CPU] * 3)
     # blocks narrower than one halo: 1024 rows over 512 shards

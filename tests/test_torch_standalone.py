@@ -93,6 +93,8 @@ def test_source_walk_sees_the_copies():
                  "mumemto_tpu_torch/analysis/viz_interactive.py",
                  "mumemto_tpu_torch/parallel/mesh.py",
                  "mumemto_tpu_torch/parallel/partition.py",
+                 "mumemto_tpu_torch/parallel/sharddict.py",
+                 "mumemto_tpu_torch/parallel/dcn.py",
                  "mumemto_tpu_torch/parallel/seqpfp.py",
                  "mumemto_tpu_torch/parallel/widepfp.py",
                  "mumemto_tpu_torch/parallel/collective_merge.py",
@@ -101,12 +103,46 @@ def test_source_walk_sees_the_copies():
 
 
 def test_no_source_imports_torch_distributed():
-    """The sharded scan and the collective merge are single-process
-    programs over a list of devices: no file of the port names
-    torch.distributed."""
+    """The sharded scan, the sharded dictionary index and the collective
+    merge are single-process programs over a list of devices: no file of
+    the port names torch.distributed, apart from parallel/dcn.py (the
+    multi-process placement), which imports it inside its functions only."""
+    dcn_path = os.path.join(PORT, "parallel", "dcn.py")
     for path in _port_sources():
-        with open(path) as f:
-            assert "torch.distributed" not in f.read(), path
+        if path != dcn_path:
+            with open(path) as f:
+                assert "torch.distributed" not in f.read(), path
+    with open(dcn_path) as f:
+        tree = ast.parse(f.read(), dcn_path)
+    inside = []
+    for fn in tree.body:
+        for node in ast.walk(fn):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] + [
+                    getattr(node, "module", None) or ""]
+                if any(n.startswith("torch") for n in names):
+                    assert isinstance(fn, ast.FunctionDef), node.lineno
+                    inside.append(fn.name)
+    assert sorted(inside) == ["barrier", "initialize", "run_partitioned_dcn"]
+
+
+def test_importing_dcn_starts_no_process_group():
+    """Importing parallel.dcn (with mumemto_tpu and jax blocked) loads no
+    torch.distributed module beyond those `import torch` itself loads, and
+    makes no process group."""
+    code = ("import torch\n"
+            "before = {m for m in sys.modules "
+            "if m.startswith('torch.distributed')}\n"
+            "import mumemto_tpu_torch.parallel.dcn as dcn\n"
+            "after = {m for m in sys.modules "
+            "if m.startswith('torch.distributed')}\n"
+            "assert after == before, sorted(after - before)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "assert callable(dcn.initialize) and callable(dcn.barrier)\n"
+            + _CLEAN)
+    run = _run_blocked(code)
+    assert run.returncode == 0, run.stderr[-3000:]
 
 
 def test_c_abi_source_loads_the_port_only():
@@ -144,7 +180,8 @@ def test_every_module_imports_with_jax_package_blocked():
     mods = _port_modules()
     assert len(mods) >= 40 and "mumemto_tpu_torch.analysis.viz" in mods
     for name in ("parallel.mesh", "parallel.seqpfp", "parallel.widepfp",
-                 "parallel.collective_merge", "parallel.partition"):
+                 "parallel.collective_merge", "parallel.partition",
+                 "parallel.sharddict", "parallel.dcn"):
         assert "mumemto_tpu_torch." + name in mods
     # capi/ is a directory of sources, not a package (its built .so must
     # not pass for a Python module); its build script is imported by name
