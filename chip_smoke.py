@@ -71,11 +71,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      total, the one-collection scan, a WindowCapacityError at M = 4); and
      parallel/dcn with two worker processes that share the card, gloo over
      127.0.0.1, on phase 10's FASTAs, host fold and collective fold (files
-     equal to phase 10's MumemtoM anchor run's).
+     equal to phase 10's MumemtoM anchor run's);
+ 13. the real-alphabet variant of the main path (any input with an N takes
+     it: the 7-bit seed, the rank-descent dictionary LCP) on
+     _synth_collection_real, the bench collection with assembly gaps
+     written over it as runs of N (100 to 50 000 long, ~1.5% of the bases)
+     and, for one row, the ten IUPAC ambiguity codes: (a) strict MUMs at 8
+     Mbp, (b) at 32 Mbp, (c) -f 3 at 8 Mbp, (d) the IUPAC input at 8 Mbp
+     (over 16 letters: the descent runs unpacked), each count against a
+     live baseline_cpu run on the same bytes, with the stage times, Mbp/s,
+     peak memory and sizes beside phase 5's and 6's ACGT run; (e) -g on
+     both inputs against rows a's and d's bytes (7 letters with the pad
+     keep the 3-bit seed; the IUPAC text takes the 7-bit seed and the
+     unpacked descent); (f) the 4-shard scan against row a's bytes (and
+     shard_dict=True refused for this alphabet); (g) .mums, .mems, .thresh and -g's .mums
+     at 1 Mbp on the card against the port's CPU path, both inputs; and
+     the KR kernel against its plain version on the ACGTN ext.
 `python3 chip_smoke.py --cards` is another, shorter program for a machine
 with several cards: the 8-shard scan spread over them with the dictionary
 index on one device and sharded, wall and peak per card (cards_main).
-Every path of phases 5-8 and 10-12 is driven with the kernels' launch counts
+Every path of phases 5-8 and 10-13 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
 and -a must have launched none. The
@@ -181,6 +196,73 @@ def _synth_collection(total_mbp: float, n_docs: int, seed: int = 0,
     return docs
 
 
+GAP_LENGTHS = (100, 1000, 10_000, 50_000)
+GAP_PROBS = (0.6, 0.25, 0.1, 0.05)
+IUPAC_CODES = b"RYKMSWBDHV"
+
+
+def _synth_collection_real(total_mbp: float, n_docs: int, seed: int = 0,
+                           iupac: bool = False):
+    """The bench collection with the alphabet of a real assembly:
+    _synth_collection's documents for the same arguments (the same lengths,
+    so Mbp stays comparable) with assembly gaps written over them as runs
+    of N and, with iupac, the ten IUPAC ambiguity codes.
+
+    Per document, independently (gaps differ between assemblies),
+    max(1, doc_len // 250_000) gaps overwrite (never insert) bases:
+    positions uniform, lengths drawn from GAP_LENGTHS with GAP_PROBS. 100
+    is NCBI's convention for a gap of unknown size and by far the most
+    common, 1000 and 10 000 are scaffolding gaps, 50 000 is what GRCh38
+    writes for its largest unsized gaps (heterochromatin, short arms). The
+    mean is 3810 bases a gap, so about 1.5% of the bases are N. A gap is
+    clipped to the document and to a tenth of its length (which bites below
+    500 kbp a document: the 1 Mbp byte checks). Document 0 always holds one
+    gap of 50 000 (so clipped); one gap of document 1 starts at its first
+    base and one of document 2 ends at its last, a run that meets the '$'.
+    With N the text has 9 distinct bytes with the parse's 0, 1, 2 and '$':
+    one more than the 3-bit seed takes.
+
+    iupac: single non-N bases at rate 1e-5 (at least one a document) become
+    a code drawn from RYKMSWBDHV, and document 0 gets each code once more,
+    so all ten occur: 19 distinct bytes, over the 16 of the packed LCP
+    bottom. The gaps are the same with and without iupac."""
+    import numpy as np
+    docs = _synth_collection(total_mbp, n_docs, seed=seed)
+    rng = np.random.default_rng([seed, 0x4E])       # the gaps
+    rng_c = np.random.default_rng([seed, 0x49])     # the codes
+    codes = np.frombuffer(IUPAC_CODES, np.uint8)
+    for i, d in enumerate(docs):
+        n = int(d.size)
+        n_gaps = max(1, n // 250_000)
+        lens = rng.choice(GAP_LENGTHS, n_gaps, p=GAP_PROBS)
+        if i == 0:
+            lens[0] = GAP_LENGTHS[-1]
+        lens = np.minimum(lens, max(1, n // 10))
+        pos = (rng.random(n_gaps) * (n - lens + 1)).astype(np.int64)
+        if i == 1:
+            pos[0] = 0
+        if i == 2:
+            pos[0] = n - lens[0]
+        if iupac:
+            n_codes = max(1, int(round(n * 1e-5)))
+            where = rng_c.integers(0, n, n_codes)
+            what = codes[rng_c.integers(0, codes.size, n_codes)]
+            if i == 0:
+                where = np.concatenate([where,
+                                        rng_c.integers(0, n, codes.size)])
+                what = np.concatenate([what, codes])
+        for p, ln in zip(pos.tolist(), lens.tolist()):
+            d[p:p + ln] = ord("N")
+        if iupac:
+            # after the gaps, so no code breaks a run: a code drawn into a
+            # gap (or onto another code) moves to the next free base
+            for p, c in zip(where.tolist(), what.tolist()):
+                while d[p % n] == ord("N") or d[p % n] in codes:
+                    p += 1
+                d[p % n] = c
+    return docs
+
+
 def _run_cpu_baseline(text, seq_lengths, opts, mbp):
     """(Mbp/s, matches) of one run of native/baseline_cpu, the single-core
     C++ SA-IS + Kasai + LCP-interval scan, on the same input; the binary
@@ -212,20 +294,29 @@ def _run_cpu_baseline(text, seq_lengths, opts, mbp):
     return mbp / r["t_total"], r["matches"]
 
 
-def _bench_rb(mbp: float, seed: int = 0, n_docs: int = N_DOCS):
-    """The bench collection as a RefBuilder at `mbp` Mbp."""
+def _rb_of(docs):
+    """Documents (uint8 arrays) as a RefBuilder: fwd $ revcomp $ each."""
     import numpy as np
     from mumemto_tpu_torch.refbuilder import RefBuilder, revcomp
-    docs = _synth_collection(mbp, n_docs, seed=seed)
     pieces, seq_lengths = [], []
     dollar = np.frombuffer(b"$", dtype=np.uint8)
     for fwd in docs:
         pieces += [fwd, dollar, revcomp(fwd), dollar]
         seq_lengths.append(2 * (fwd.size + 1))
     text = np.concatenate(pieces)
-    return RefBuilder(text=text, seq_lengths=seq_lengths, num_docs=n_docs,
+    return RefBuilder(text=text, seq_lengths=seq_lengths, num_docs=len(docs),
                       use_revcomp=True, input_files=[], multifasta_names=[],
                       multifasta_lengths=[])
+
+
+def _bench_rb(mbp: float, seed: int = 0, n_docs: int = N_DOCS):
+    """The bench collection as a RefBuilder at `mbp` Mbp."""
+    return _rb_of(_synth_collection(mbp, n_docs, seed=seed))
+
+
+def _real_rb(mbp: float, seed: int = 0, iupac: bool = False):
+    """_synth_collection_real's collection as a RefBuilder at `mbp` Mbp."""
+    return _rb_of(_synth_collection_real(mbp, N_DOCS, seed=seed, iupac=iupac))
 
 
 def _ext_of(text, w: int):
@@ -709,8 +800,9 @@ def _counted(torch, fn):
 
 
 def _direct_index(torch, rb) -> dict:
-    """The -g index stages alone on the padded bench text: doubling rounds
-    and history size, and the PLCP deep-row count against deep_cap."""
+    """The -g index stages alone on the padded text: doubling rounds and
+    history size, and, where the alphabet takes the PLCP (<= 8 letters),
+    its deep-row count against deep_cap; otherwise the rank descent."""
     import numpy as np
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.ops import pfp as ops_pfp
@@ -719,7 +811,7 @@ def _direct_index(torch, rb) -> dict:
     n = engine.pad_size(n_real)
     text_np = np.zeros(n, np.uint8)
     text_np[:n_real] = rb.text
-    seed_thr, _ = ops_pfp.seed_thresholds(
+    seed_thr, lcp_thr = ops_pfp.seed_thresholds(
         set(ops_pfp._alphabet(rb.text)) | {0})
     text = torch.from_numpy(text_np).to(engine.resolve("cuda"))
     torch.cuda.synchronize()
@@ -729,13 +821,19 @@ def _direct_index(torch, rb) -> dict:
         text, n, packed_init=True, alpha_thresholds=seed_thr)
     torch.cuda.synchronize()
     sa_s = time.perf_counter() - t0
-    stats = {}
-    ops_suffix._lcp_plcp_impl(sa, hist, text, n, hist.shape[0], seed_thr,
-                              deep_cap=max(n // 4, 1024), num_lvl=num_lvl,
-                              stats=stats)
+    stats = {"lcp": "plcp" if seed_thr is not None else "descent"}
+    if seed_thr is not None:
+        ops_suffix._lcp_plcp_impl(sa, hist, text, n, hist.shape[0], seed_thr,
+                                  deep_cap=max(n // 4, 1024),
+                                  num_lvl=num_lvl, stats=stats)
+    else:
+        ops_suffix._lcp_impl(sa, hist, num_lvl, n, text=text,
+                             bottom_thresholds=lcp_thr)
     torch.cuda.synchronize()
+    first_round = 4 if seed_thr is not None else 3
     stats.update(n=n, filled_rows=num_lvl, hist_rows=int(hist.shape[0]),
-                 doubling_sorts=num_lvl - 4 + 1,
+                 doubling_sorts=num_lvl - first_round + 1,
+                 exits_early=num_lvl < int(hist.shape[0]),
                  hist_bytes=int(hist.numel()) * 4, sa_s=sa_s,
                  lcp_s=time.perf_counter() - t0 - sa_s,
                  peak_alloc_bytes=torch.cuda.max_memory_allocated())
@@ -1733,6 +1831,235 @@ def phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work):
     report["modules"] = out
 
 
+class _PrepSpy:
+    """Records the sizes ops/pfp._host_prep gives every scan prepared while
+    it is active: the dictionary's and the row space's sizes, the doubling
+    depth and the alphabet variant."""
+
+    def __init__(self):
+        from mumemto_tpu_torch.ops import pfp as ops_pfp
+        self.mod = ops_pfp
+        self.sizes = []
+
+    def __enter__(self):
+        self.real = self.mod._host_prep
+
+        def host_prep(pfp, doc_ends):
+            h = self.real(pfp, doc_ends)
+            self.sizes.append({
+                "nd": h["nd"], "nr": h["nr"], "lvl_cap": h["lvl_cap"],
+                "lvl_static": h["lvl_static"], "phrases": h["npz"],
+                "parse_entries": h["m"],
+                "longest_phrase": int(pfp.phrase_ln.max()),
+                "alphabet": len(set(pfp.alpha) | {0, 1, 2}),
+                "seed_thr_is_none": h["seed_thr"] is None,
+                "lcp_thr_is_none": h["lcp_thr"] is None})
+            return h
+        self.mod._host_prep = host_prep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._host_prep = self.real
+
+
+STAGES = ("build_pfp", "dict_index", "parse_side", "expand_sort_analyze",
+          "compact", "emit")
+
+
+def _real_line(tag, entry, acgt):
+    """One line for a row of the real-alphabet phase: the stage split, wall,
+    Mbp/s, peak, matches and sizes, each with the ACGT run's figure of the
+    same call in brackets where there is one."""
+    def pair(fmt, get):
+        out = fmt % get(entry)
+        return out + (" [" + fmt % get(acgt) + "]" if acgt else "")
+    parts = [f"{k} " + pair("%.3f", lambda e, k=k: e["stages_s"][k])
+             for k in STAGES]
+    parts += ["wall " + pair("%.3f", lambda e: e["wall_s"]) + " s",
+              pair("%.2f", lambda e: e["mbp"] / e["wall_s"]) + " Mbp/s",
+              "peak " + pair("%.2f", lambda e: e["peak_alloc_bytes"] / 2**30)
+              + " GiB", "matches " + pair("%d", lambda e: e["matches"])]
+    parts += [f"{k} {entry[k]}" for k in ("nd", "nr", "lvl_cap",
+                                          "longest_phrase") if k in entry]
+    log(f"[real] {tag}: " + ", ".join(parts) + " ([ACGT, same call])")
+
+
+def _real_row(torch, tag, label, rb, opts, mbp, acgt, variant):
+    """One PFP row of the real-alphabet phase through _drive (a cold and a
+    warm run, the match count against a live baseline_cpu run), with the
+    sizes of the run and the alphabet variant it must take: `variant` is
+    (seed_thr is None, lcp_thr is None). Exactly 1 KR launch a run."""
+    with _PrepSpy() as spy:
+        entry, res = _drive(torch, label, rb, opts, mbp)
+    if len(spy.sizes) != 2 or spy.sizes[0] != spy.sizes[1]:
+        raise AssertionError(f"{label}: two runs prepared {spy.sizes}")
+    entry.update(spy.sizes[0])
+    if entry["launches"] != {"kr_break_mask": 2, "add_one": 0}:
+        raise AssertionError(f"{label}: kernel launches {entry['launches']} "
+                             "in two runs, expected 1 KR launch a run")
+    got = (entry["seed_thr_is_none"], entry["lcp_thr_is_none"])
+    if got != variant:
+        raise AssertionError(f"{label}: (seed_thr, lcp_thr) is None = {got}, "
+                             f"expected {variant}")
+    _real_line(tag, entry, acgt)
+    return entry, res
+
+
+def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
+    """The real-alphabet variant of the main path on _synth_collection_real
+    (N gaps; with iupac the ten ambiguity codes): the 7-bit seed and the
+    rank-descent dictionary LCP, which any input with an N takes. Rows a-g
+    of the module docstring's phase 13; every comparison raises on a
+    difference and nothing is caught. report["e2e"] and report["mem"] hold
+    the ACGT runs of the same call that each row is printed beside."""
+    import numpy as np
+    from mumemto_tpu_torch import engine, options, refbuilder
+    from mumemto_tpu_torch.kernels import kr_mask
+    from mumemto_tpu_torch.parallel import mesh, seqpfp
+    t_phase = time.perf_counter()
+    out = {"paths": {}, "rows": {}}
+    opts = options.normalize(N_DOCS, quiet=True)
+    opts_f3 = options.normalize(N_DOCS, rare_freq=3, max_mem_freq=0,
+                                quiet=True)
+    acgt = {"mum": report.get("e2e", {}).get(f"{mbp}mbp"),
+            "big": report.get("e2e", {}).get(f"{mbp_big}mbp"),
+            "f3": report.get("mem", {}).get(f"f3 {mbp}mbp")}
+
+    # the complement table on the codes: R<->Y, K<->M, B<->V, D<->H, S, W, N
+    codes = np.frombuffer(b"N" + IUPAC_CODES, np.uint8)
+    if refbuilder.revcomp(codes).tobytes() != b"BDHVWSKMRYN":
+        raise AssertionError("refbuilder.revcomp on the IUPAC codes: "
+                             f"{refbuilder.revcomp(codes).tobytes()}")
+
+    rb = _real_rb(mbp)
+    n_share = float((rb.text == ord("N")).mean())
+    out["n_share"] = n_share
+    log(f"[real] ACGTN {mbp} Mbp: {rb.text.size} chars, {n_share:.4%} N")
+
+    # the KR kernel on a text with runs of equal bytes, where a rolling
+    # hash that drops a term would show: mask and count exactly equal
+    ext = torch.from_numpy(_ext_of(rb.text, 10)).to(engine.resolve("cuda"))
+    m_k, c_k = kr_mask.break_mask(ext, int(rb.text.size), 10, 100)
+    m_p, c_p = kr_mask.break_mask_plain(ext, int(rb.text.size), 10, 100)
+    err = max(int((m_k != m_p).sum()), abs(int(c_k) - int(c_p)))
+    out["kernel"] = {"ne": int(ext.numel()), "breaks": int(c_k),
+                     "mismatches": err}
+    log(f"[real] KR kernel on the ACGTN ext: {json.dumps(out['kernel'])}")
+    if err:
+        raise AssertionError("kr_mask kernel != plain on the ACGTN ext")
+    report["kernel_max_abs_err"] = max(report.get("kernel_max_abs_err", 0),
+                                       err)
+    del ext, m_k, m_p
+
+    # a, c: ACGTN, strict MUMs and -f 3; d: IUPAC; b: the large tier
+    row_a, res_a = _real_row(torch, "a", f"real ACGTN {mbp} Mbp", rb, opts,
+                             mbp, acgt["mum"], (True, False))
+    out["rows"]["a"] = row_a
+    bytes_a = res_a.output_bytes()
+    out["rows"]["c"], res_c = _real_row(
+        torch, "c", f"real ACGTN -f 3 {mbp} Mbp", rb, opts_f3, mbp,
+        acgt["f3"], (True, False))
+    del res_c
+    rb_d = _real_rb(mbp, iupac=True)
+    out["rows"]["d"], res_d = _real_row(
+        torch, "d", f"real IUPAC {mbp} Mbp", rb_d, opts, mbp, acgt["mum"],
+        (True, True))
+    bytes_d = res_d.output_bytes()
+    if out["rows"]["d"]["alphabet"] != 19 or row_a["alphabet"] != 9:
+        raise AssertionError(f"alphabets of {row_a['alphabet']} and "
+                             f"{out['rows']['d']['alphabet']} bytes, "
+                             "expected 9 and 19")
+    del res_d
+    out["rows"]["b"], res_b = _real_row(
+        torch, "b", f"real ACGTN {mbp_big} Mbp", _real_rb(mbp_big), opts,
+        mbp_big, acgt["big"], (True, False))
+    del res_b
+    for key in "abcd":
+        out["paths"][out["rows"][key]["label"]] = out["rows"][key]["launches"]
+
+    # e: the direct backend against the PFP rows' bytes. Its text holds no
+    # parse bytes, so ACGTN with the pad's 0 is 7 letters and keeps the
+    # 3-bit seed and the PLCP; the IUPAC input takes the 7-bit seed and the
+    # unpacked descent
+    acgt_g = report.get("routes", {}).get("-g")
+    for key, alpha, rb_g, want in (("e", "ACGTN", rb, bytes_a),
+                                   ("e2", "IUPAC", rb_d, bytes_d)):
+        label = f"real {alpha} -g {mbp} Mbp"
+        engine.find_matches(rb_g, opts, device="cuda", backend="direct")
+        torch.cuda.reset_peak_memory_stats()
+        timer = StageTimer(torch)
+        res_g, wall, lg = _counted(torch, lambda: engine.find_matches(
+            rb_g, opts, device="cuda", backend="direct", phase=timer))
+        row_e = {"label": label, "mbp": mbp, "wall_s": wall,
+                 "stages_s": timer.stages, "matches": res_g.num_matches,
+                 "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": lg,
+                 "bytes_equal_pfp_row": res_g.output_bytes() == want}
+        del res_g
+        row_e["index"] = _direct_index(torch, rb_g)
+        if acgt_g:
+            row_e["acgt"] = {k: acgt_g[k] for k in (
+                "wall_s", "matches", "peak_alloc_bytes", "index")}
+        log(f"[real] {key}: {json.dumps(row_e)}")
+        if not row_e["bytes_equal_pfp_row"] or any(lg.values()):
+            raise AssertionError(f"{label}: bytes != the PFP row's, or "
+                                 f"kernels launched: {lg}")
+        if (row_e["index"]["lcp"] == "descent") != (alpha == "IUPAC"):
+            raise AssertionError(f"{label}: the index took the "
+                                 f"{row_e['index']['lcp']} LCP")
+        out["rows"][key] = row_e
+        out["paths"][label] = lg
+    del rb_d
+
+    # f: the sharded scan, 4 shards on the card, against row a's bytes;
+    # the sharded dictionary index must refuse this alphabet
+    label = f"real ACGTN {mbp} Mbp, 4 shards"
+    row_f, res_f = _drive_sharded(torch, label, rb, opts, 4, bytes_a, M=8192)
+    del res_f
+    try:
+        seqpfp.find_matches_seq_sharded(rb, opts,
+                                        mesh.seq_devices(4, "cuda"), M=8192,
+                                        shard_dict=True)
+    except AssertionError as e:
+        row_f["shard_dict_refused"] = str(e)
+    else:
+        raise AssertionError(f"{label}: shard_dict=True was not refused")
+    if "packed <=8-byte alphabet" not in row_f["shard_dict_refused"]:
+        raise AssertionError(f"{label}: shard_dict=True refused with "
+                             f"{row_f['shard_dict_refused']!r}")
+    log(f"[real] f: shard_dict=True refused: "
+        f"{row_f['shard_dict_refused']}")
+    out["rows"]["f"] = row_f
+    out["paths"][label] = row_f["launches"]
+
+    # g: output bytes on the card against the port's CPU path
+    same = {}
+    for alpha, iupac in (("ACGTN", False), ("IUPAC", True)):
+        rb_small = _real_rb(mbp_bytes, seed=1, iupac=iupac)
+        for name, kw, run_kw, exts in (
+                ("mums", {}, {}, {".mums"}),
+                ("-f 3", {"rare_freq": 3}, {}, {".mems"}),
+                ("-M", {"merge": True}, {},
+                 {".mums", ".thresh", ".thresh_rev"}),
+                ("-g", {}, {"backend": "direct"}, {".mums"})):
+            o = options.normalize(N_DOCS, quiet=True, **kw)
+            with tempfile.TemporaryDirectory() as tmp:
+                gpu = _written(engine, rb_small, o, "cuda", tmp, "cuda",
+                               **run_kw)
+                cpu = _written(engine, rb_small, o, "cpu", tmp, "cpu",
+                               **run_kw)
+            sizes = {ext: len(b) for ext, b in sorted(gpu.items())}
+            log(f"[real] g: {alpha} {mbp_bytes} Mbp {name}: cuda {sizes}")
+            if gpu != cpu or set(gpu) != exts or not all(gpu.values()):
+                raise AssertionError(f"{alpha} {mbp_bytes} Mbp {name}: cuda "
+                                     "files != cpu files")
+            same[f"{alpha} {name}"] = sizes
+    out["rows"]["g"] = same
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[real] the phase took {out['phase_s']:.1f} s")
+    report["real"] = out
+
+
 def _sync_all(torch):
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
@@ -1863,6 +2190,7 @@ def main() -> int:
         phase_slice(torch, report, res_8mbp, res_f3, work)
         phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work)
         phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work)
+    phase_real(torch, report)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
     if foreign:
@@ -1879,6 +2207,7 @@ def main() -> int:
     report["path_launches"].update(report["slice"]["paths"])
     report["path_launches"].update(report["sharded"]["paths"])
     report["path_launches"].update(report["modules"]["paths"])
+    report["path_launches"].update(report["real"]["paths"])
     pr = report["probe"]
     # add_one's bound: the (8, 128) int32 tile read once and written once
     probe_bound_ms = 2 * 8 * 128 * 4 / HBM_BYTES_PER_S * 1e3
