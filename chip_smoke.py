@@ -86,11 +86,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      unpacked descent); (f) the 4-shard scan against row a's bytes (and
      shard_dict=True refused for this alphabet); (g) .mums, .mems, .thresh and -g's .mums
      at 1 Mbp on the card against the port's CPU path, both inputs; and
-     the KR kernel against its plain version on the ACGTN ext.
+     the KR kernel against its plain version on the ACGTN ext;
+ 14. the main path at BASELINE.md's sizes (phase_scale): _synth_collection
+     with 10 and 20 documents of 5 Mbp (a bacterial genome), 0.1% SNPs:
+     (a) 10 docs, partial multi-MUMs (-k -1), (b) -f 3, (c) 20 docs from 20
+     FASTAs through cli.main, strict MUMs, (d) MumemtoM on row c's FASTAs,
+     2 anchor partitions (11 and 10 docs) and the anchor merge in one
+     process, whose MUM set must equal row c's except for MUMs that touch
+     a document's first or last base (counted), (d2) parallel/dcn with two
+     worker processes sharing the card (files equal to row d's), (e) the
+     8-doc bench collection at 64 and 96 Mbp, (f) the bench collection at
+     128 Mbp and row a's documents at 1% SNPs, which _rmq_query's int32
+     guard must refuse with its ValueError (an input that runs is printed
+     as a finding and the next size is tried), (k) the KR kernel on row
+     c's ext (0.75 x 2^28 bytes) against its plain version, timed beside
+     its bound. Each row prints nd, the range-min levels and their product
+     against 2^31, nr, walls, stage times, Mbp/s, peak memory and KR
+     launches (exactly 1 a scan); the counts of a, b, c and the 96 Mbp
+     tier must equal live baseline_cpu runs, started together at the end.
 `python3 chip_smoke.py --cards` is another, shorter program for a machine
 with several cards: the 8-shard scan spread over them with the dictionary
 index on one device and sharded, wall and peak per card (cards_main).
-Every path of phases 5-8 and 10-13 is driven with the kernels' launch counts
+Every path of phases 5-8 and 10-14 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
 and -a must have launched none. The
@@ -102,6 +119,7 @@ JAX package, mumemto_tpu; native/baseline_cpu is run as a program.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -263,17 +281,23 @@ def _synth_collection_real(total_mbp: float, n_docs: int, seed: int = 0,
     return docs
 
 
-def _run_cpu_baseline(text, seq_lengths, opts, mbp):
-    """(Mbp/s, matches) of one run of native/baseline_cpu, the single-core
-    C++ SA-IS + Kasai + LCP-interval scan, on the same input; the binary
-    is built first by native/build_baseline.py when missing or stale."""
-    import tempfile
+def _build_cpu_baseline():
+    """native/baseline_cpu, built by native/build_baseline.py when missing
+    or stale."""
     built = subprocess.run(
         [sys.executable, os.path.join(ROOT, "native", "build_baseline.py")],
         capture_output=True, text=True, timeout=600)
     if built.returncode != 0:
         raise AssertionError(f"native/baseline_cpu did not build: "
                              f"{built.stdout} {built.stderr[-2000:]}")
+
+
+def _run_cpu_baseline(text, seq_lengths, opts, mbp):
+    """(Mbp/s, matches) of one run of native/baseline_cpu, the single-core
+    C++ SA-IS + Kasai + LCP-interval scan, on the same input; the binary
+    is built first when missing or stale."""
+    import tempfile
+    _build_cpu_baseline()
     with tempfile.TemporaryDirectory() as td:
         tf = os.path.join(td, "text.bin")
         lf = os.path.join(td, "lens.txt")
@@ -1012,10 +1036,15 @@ def _write_fastas(docs, tmp):
     return paths
 
 
-def _mums_set(path, num_docs):
-    """The .mums file as a set of (length, offsets, strands) records."""
+def _mums_set(path, num_docs, order=None):
+    """The .mums file as a set of (length, offsets, strands) records; with
+    `order` (column j of the file is document order[j]) the columns are
+    put in document order."""
     from mumemto_tpu_torch import formats
     L, S, T = formats.parse_mums(path, num_docs)
+    if order is not None:
+        cols = [order.index(d) for d in range(num_docs)]
+        S, T = S[:, cols], T[:, cols]
     return {(int(l), tuple(s.tolist()), tuple(t.tolist()))
             for l, s, t in zip(L, S, T)}
 
@@ -1710,7 +1739,7 @@ from mumemto_tpu_torch.kernels import kr_mask, probe
 from mumemto_tpu_torch.parallel import dcn, mumemtom
 rank, port, prefix = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 files = open(sys.argv[4]).read().split()
-collective = sys.argv[6] == "1"
+collective, device = sys.argv[6] == "1", sys.argv[7]
 scanned = []
 real = mumemtom.scan_partition
 def scan(pfiles, pfx, **kw):
@@ -1721,7 +1750,7 @@ kr_mask.launches = probe.launches = 0
 dcn.initialize("127.0.0.1:" + port, 2, rank)
 t1 = time.perf_counter()
 dcn.run_partitioned_dcn(files, prefix, anchor=True, num_partitions=2,
-                        collective=collective, device="cuda")
+                        collective=collective, device=device)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mumemto_tpu", "bench"))
 assert not bad, bad
@@ -1732,7 +1761,7 @@ print("DCN_WORKER " + json.dumps({
 """
 
 
-def _dcn_pair(worker, prefix, filelist, collective, env):
+def _dcn_pair(worker, prefix, filelist, collective, env, device):
     """Two workers of one gloo group on a free port of 127.0.0.1, run to
     their end: (the processes, each one's (stdout, stderr))."""
     import socket
@@ -1741,7 +1770,7 @@ def _dcn_pair(worker, prefix, filelist, collective, env):
         port = sock.getsockname()[1]
     procs = [subprocess.Popen(
         [sys.executable, worker, str(rank), str(port), prefix, filelist,
-         ROOT, "1" if collective else "0"], stdout=subprocess.PIPE,
+         ROOT, "1" if collective else "0", device], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env) for rank in (0, 1)]
     ends = []
     try:
@@ -1755,13 +1784,10 @@ def _dcn_pair(worker, prefix, filelist, collective, env):
     return procs, ends
 
 
-def _dcn_pairs(out, work, anchor_s):
-    """parallel/dcn with two worker processes that share the card: gloo
-    over 127.0.0.1 on a free port, phase 10's 8 FASTAs, anchor partitions,
-    the host fold and the collective fold. Each run's files must equal
-    phase 10's MumemtoM anchor run's, which are in `work`."""
-    fastas = [os.path.join(work, f"d{i}.fa") for i in range(N_DOCS)]
-    filelist = os.path.join(work, "dcn_files.txt")
+def _dcn_setup(work, fastas, tag):
+    """The worker script, the file list and the environment of a dcn pair
+    on `fastas`, written into `work`."""
+    filelist = os.path.join(work, f"{tag}_files.txt")
     with open(filelist, "w") as fh:
         fh.write("\n".join(fastas))
     worker = os.path.join(work, "dcn_worker.py")
@@ -1771,44 +1797,67 @@ def _dcn_pairs(out, work, anchor_s):
     for k in ("MUMEMTO_COORDINATOR", "MUMEMTO_NUM_PROCESSES",
               "MUMEMTO_PROCESS_ID", "MUMEMTO_SHARD_DICT"):
         env.pop(k, None)
+    return worker, filelist, env
+
+
+def _dcn_run(label, worker, prefix, filelist, collective, env, device,
+             want_files):
+    """One dcn pair to its end (one retry on a fresh port: another job on
+    the machine can take the port between its probe and the workers' bind,
+    and a loaded host can miss gloo's connect window; a real fault shows
+    again). Rank r must have scanned partition r, launching the KR kernel
+    once on the card (never on the CPU), and the merged files must equal
+    want_files' (a prefix). Returns (pair seconds, the ranks' records,
+    the files' sizes)."""
+    for attempt in (0, 1):
+        t0 = time.perf_counter()
+        procs, ends = _dcn_pair(worker, prefix, filelist, collective, env,
+                                device)
+        wall = time.perf_counter() - t0
+        if all(p.returncode == 0 for p in procs):
+            break
+        log(f"[dcn] {label}: attempt {attempt} exited "
+            f"{[p.returncode for p in procs]}: "
+            f"{' | '.join(se[-600:] for _so, se in ends)}")
+    want_kr = 1 if device == "cuda" else 0
+    ranks = []
+    for rank, (p, (so, se)) in enumerate(zip(procs, ends)):
+        lines = [ln for ln in so.splitlines()
+                 if ln.startswith("DCN_WORKER ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"{label}: rank {rank} exited "
+                                 f"{p.returncode}: {so[-1000:]} "
+                                 f"{se[-3000:]}")
+        rec = json.loads(lines[0][len("DCN_WORKER "):])
+        if rec["scanned"] != [rank] or rec["kr_break_mask"] != want_kr or \
+                rec["add_one"]:
+            raise AssertionError(f"{label}: rank {rank} reports {rec}")
+        ranks.append(rec)
+    sizes = {}
+    for ext in (".mums", ".athresh", ".lengths"):
+        with open(prefix + ext, "rb") as a, open(want_files + ext, "rb") as b:
+            ga, gb = a.read(), b.read()
+        if ga != gb or not ga:
+            raise AssertionError(f"{label}: {ext} != the single-process "
+                                 "MumemtoM anchor run's")
+        sizes[ext] = len(ga)
+    return wall, ranks, sizes
+
+
+def _dcn_pairs(out, work, anchor_s):
+    """parallel/dcn with two worker processes that share the card: gloo
+    over 127.0.0.1 on a free port, phase 10's 8 FASTAs, anchor partitions,
+    the host fold and the collective fold. Each run's files must equal
+    phase 10's MumemtoM anchor run's, which are in `work`."""
+    fastas = [os.path.join(work, f"d{i}.fa") for i in range(N_DOCS)]
+    worker, filelist, env = _dcn_setup(work, fastas, "dcn")
     out["dcn"] = {"single_process_anchor_s": anchor_s}
     for collective in (False, True):
         label = "dcn collective" if collective else "dcn host fold"
         prefix = os.path.join(work, label.replace(" ", "_"))
-        # one retry on a fresh port: another job on the machine can take
-        # the port between its probe and the workers' bind, and a loaded
-        # host can miss gloo's connect window; a real fault shows again
-        for attempt in (0, 1):
-            t0 = time.perf_counter()
-            procs, ends = _dcn_pair(worker, prefix, filelist, collective, env)
-            wall = time.perf_counter() - t0
-            if all(p.returncode == 0 for p in procs):
-                break
-            log(f"[dcn] {label}: attempt {attempt} exited "
-                f"{[p.returncode for p in procs]}: "
-                f"{' | '.join(se[-600:] for _so, se in ends)}")
-        ranks = []
-        for rank, (p, (so, se)) in enumerate(zip(procs, ends)):
-            lines = [ln for ln in so.splitlines()
-                     if ln.startswith("DCN_WORKER ")]
-            if p.returncode != 0 or len(lines) != 1:
-                raise AssertionError(f"{label}: rank {rank} exited "
-                                     f"{p.returncode}: {so[-1000:]} "
-                                     f"{se[-3000:]}")
-            rec = json.loads(lines[0][len("DCN_WORKER "):])
-            if rec["scanned"] != [rank] or rec["kr_break_mask"] != 1 or \
-                    rec["add_one"]:
-                raise AssertionError(f"{label}: rank {rank} reports {rec}")
-            ranks.append(rec)
-        sizes = {}
-        for ext in (".mums", ".athresh", ".lengths"):
-            with open(prefix + ext, "rb") as a, \
-                    open(os.path.join(work, "anchor" + ext), "rb") as b:
-                ga, gb = a.read(), b.read()
-            if ga != gb or not ga:
-                raise AssertionError(f"{label}: {ext} != the single-process "
-                                     "MumemtoM anchor run's")
-            sizes[ext] = len(ga)
+        wall, ranks, sizes = _dcn_run(label, worker, prefix, filelist,
+                                      collective, env, "cuda",
+                                      os.path.join(work, "anchor"))
         out["dcn"][label] = {"wall_s": wall, "ranks": ranks, "sizes": sizes}
         log(f"[dcn] {label}: pair {wall:.3f} s beside {anchor_s:.3f} s in "
             f"one process; {json.dumps(out['dcn'][label])}")
@@ -1834,20 +1883,29 @@ def phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work):
 class _PrepSpy:
     """Records the sizes ops/pfp._host_prep gives every scan prepared while
     it is active: the dictionary's and the row space's sizes, the doubling
-    depth and the alphabet variant."""
+    depth and the alphabet variant; and in `rmq` the (entries, levels) of
+    every range-min table ops/pfp._rmq_query is asked to query."""
 
     def __init__(self):
         from mumemto_tpu_torch.ops import pfp as ops_pfp
         self.mod = ops_pfp
         self.sizes = []
+        self.rmq = []
 
     def __enter__(self):
         self.real = self.mod._host_prep
+        self.real_rmq = self.mod._rmq_query
+
+        def rmq(table, lo, hi):
+            self.rmq.append((int(table[0].shape[0]), len(table)))
+            return self.real_rmq(table, lo, hi)
+        self.mod._rmq_query = rmq
 
         def host_prep(pfp, doc_ends):
             h = self.real(pfp, doc_ends)
             self.sizes.append({
-                "nd": h["nd"], "nr": h["nr"], "lvl_cap": h["lvl_cap"],
+                "d_len": h["total_real"] + 1, "nd": h["nd"], "nr": h["nr"],
+                "lvl_cap": h["lvl_cap"],
                 "lvl_static": h["lvl_static"], "phrases": h["npz"],
                 "parse_entries": h["m"],
                 "longest_phrase": int(pfp.phrase_ln.max()),
@@ -1860,6 +1918,7 @@ class _PrepSpy:
 
     def __exit__(self, *exc):
         self.mod._host_prep = self.real
+        self.mod._rmq_query = self.real_rmq
 
 
 STAGES = ("build_pfp", "dict_index", "parse_side", "expand_sort_analyze",
@@ -2060,6 +2119,396 @@ def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
     report["real"] = out
 
 
+# _rmq_query's guard (both packages): a range-min table of n entries x
+# levels is refused at n x levels >= 2^31, where its int32 flat index would
+# overflow
+FLAT_INDEX_LIMIT = 2**31
+SCALE_DOCS = (10, 20)  # BASELINE.md configs 2-3 and 4: E. coli-like genomes
+
+
+class _Split:
+    """Seconds of named module functions while active, each call between
+    two card synchronizations (targets: {name: (module, attribute)});
+    every find_matches call also gets `phase` (a SumTimer, restarted at the
+    call) for its stage split."""
+
+    def __init__(self, torch, targets, phase):
+        self.torch, self.targets, self.phase = torch, targets, phase
+        self.s = dict.fromkeys(targets, 0.0)
+        self.calls = dict.fromkeys(targets, 0)
+
+    def __enter__(self):
+        self.real = {n: getattr(m, a) for n, (m, a) in self.targets.items()}
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self._timed(name, self.real[name],
+                                           attr == "find_matches"))
+        return self
+
+    def _timed(self, name, real, scan):
+        def timed(*a, **kw):
+            self.torch.cuda.synchronize()
+            if scan:
+                kw["phase"] = self.phase
+                self.phase.t = time.perf_counter()
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.torch.cuda.synchronize()
+                self.s[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+        return timed
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.real[name])
+
+
+def _flat_sizes(spy) -> dict:
+    """The dictionary's range-min table (the one over nd entries) of the
+    scans `spy` saw: entries, levels, their product against the guard."""
+    nd = spy.sizes[0]["nd"]
+    levels = {lv for n, lv in spy.rmq if n == nd}
+    if len(levels) != 1:
+        raise AssertionError(f"range-min tables {spy.rmq} for nd {nd}")
+    lv = levels.pop()
+    return {"dict_levels": lv, "dict_flat": nd * lv,
+            "dict_flat_share": nd * lv / FLAT_INDEX_LIMIT,
+            "rmq_tables": sorted(set(spy.rmq))}
+
+
+def _scale_line(tag, e):
+    """One line for a row of the scale phase."""
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in e["stages_s"].items())
+    top = max(e["stage_peak_bytes"], key=e["stage_peak_bytes"].get)
+    log(f"[scale] {tag}: {e['label']}: nd {e['nd']} x {e['dict_levels']} "
+        f"levels = {e['dict_flat']} ({e['dict_flat_share']:.1%} of 2^31), "
+        f"nr {e['nr']}, wall {e['wall_s']:.3f} s (runs "
+        f"{', '.join('%.3f' % w for w in e['walls_s'])}), "
+        f"{e['mbp_per_s']:.2f} Mbp/s, peak "
+        f"{e['peak_alloc_bytes'] / 2**30:.2f} GiB (in {top}), KR launches "
+        f"{e['launches']['kr_break_mask']} in {len(e['walls_s'])} runs, "
+        f"{e['matches']} matches; {stages}")
+
+
+def _scale_runs(torch, label, run, mbp, split=None):
+    """A cold and a warm run of `run` (the first at a new size), each with the
+    kernels' launch counts set to 0 just before and read just after: every
+    run must launch the KR kernel exactly once (one PFP scan) and the
+    probe kernel never. Each runs under a stage timer that also keeps each
+    stage's peak allocation (_AllCardsTimer, one card here): `run` takes
+    the timer as its phase, or with `split` ({name: (module, attribute)})
+    a _Split times those functions and hands the timer to find_matches.
+    Returns (record of the last run, its result)."""
+    walls, launches = [], []
+    with _PrepSpy() as spy:
+        for last in (False, True):
+            timer = _AllCardsTimer(torch)
+            spl = _Split(torch, split, phase=timer) if split else None
+            torch.cuda.reset_peak_memory_stats()
+            with spl or contextlib.nullcontext():
+                res, s, lc = _counted(torch, lambda: run(timer))
+            walls.append(s)
+            launches.append(lc)
+            if not last:
+                del res
+    if len(spy.sizes) != 2 or spy.sizes[0] != spy.sizes[1]:
+        raise AssertionError(f"{label}: two runs prepared {spy.sizes}")
+    if any(lc != {"kr_break_mask": 1, "add_one": 0} for lc in launches):
+        raise AssertionError(f"{label}: kernel launches {launches}, "
+                             "expected 1 KR launch a run")
+    stage_peaks = {k: v[0] for k, v in timer.stage_peaks.items()}
+    entry = {"label": label, "mbp": mbp, "wall_s": walls[-1],
+             "walls_s": walls, "mbp_per_s": mbp / walls[-1],
+             "stages_s": timer.stages, "stage_peak_bytes": stage_peaks,
+             "peak_alloc_bytes": max(torch.cuda.max_memory_allocated(),
+                                     *stage_peaks.values()),
+             "launches": {k: sum(lc[k] for lc in launches)
+                          for k in launches[0]},
+             **spy.sizes[0], **_flat_sizes(spy)}
+    if spl:
+        entry["split_s"] = spl.s
+    return entry, res
+
+
+def _scale_scan(torch, tag, label, rb, opts, mbp):
+    """A row of the scale phase through engine.find_matches; the count is
+    held against baseline_cpu later (_baselines_together)."""
+    from mumemto_tpu_torch import engine
+    entry, res = _scale_runs(
+        torch, label, lambda timer: engine.find_matches(
+            rb, opts, device="cuda", phase=timer), mbp)
+    entry.update(num_docs=rb.num_docs, text_chars=int(rb.text.size),
+                 k=opts.num_distinct, f=opts.max_doc_freq,
+                 F=opts.max_total_freq, matches=res.num_matches,
+                 size_cap=engine.interval_size_cap(opts, rb.num_docs))
+    _scale_line(tag, entry)
+    return entry, res
+
+
+def _baselines_together(jobs) -> dict:
+    """Live native/baseline_cpu runs for jobs [(label, rb, opts, mbp)], all
+    started together, one core each (the binary built first, so that no two
+    builds race): {label: (seconds, matches)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    _build_cpu_baseline()
+
+    def one(job):
+        _label, rb, opts, mbp = job
+        mbp_s, matches = _run_cpu_baseline(rb.text, rb.seq_lengths, opts, mbp)
+        return mbp / mbp_s, matches
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        outs = list(pool.map(one, jobs))
+    return {job[0]: out for job, out in zip(jobs, outs)}
+
+
+def _refused(torch, tag, label, rb, opts):
+    """One scan that the range-min guard must refuse: find_matches on the
+    card raises _rmq_query's ValueError on the dictionary's table, after
+    exactly one KR launch. Returns its record with `refused` False when the
+    scan ran to its end (then no table it asked for may reach the guard's
+    limit: the caller moves to the next size)."""
+    import re
+    from mumemto_tpu_torch import engine
+    from mumemto_tpu_torch.kernels import kr_mask, probe
+    with _PrepSpy() as spy:
+        kr_mask.launches = probe.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = engine.find_matches(rb, opts, device="cuda")
+        except ValueError as e:
+            err = str(e)
+        else:
+            err, matches = None, res.num_matches
+            del res
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    launches = {"kr_break_mask": kr_mask.launches, "add_one": probe.launches}
+    entry = {"label": label, "num_docs": rb.num_docs,
+             "text_chars": int(rb.text.size), "s": s, "launches": launches,
+             **spy.sizes[0], **_flat_sizes(spy), "refused": err is not None,
+             "error": err}
+    if launches != {"kr_break_mask": 1, "add_one": 0}:
+        raise AssertionError(f"{label}: kernel launches {launches}")
+    if err is None:
+        entry["matches"] = matches
+        if any(n * lv >= FLAT_INDEX_LIMIT for n, lv in spy.rmq):
+            raise AssertionError(f"{label}: ran to its end past the guard "
+                                 f"({spy.rmq})")
+        log(f"[scale] {tag}: FINDING: {label} ran to its end, nd "
+            f"{entry['nd']} x {entry['dict_levels']} levels = "
+            f"{entry['dict_flat']} < 2^31 ({matches} matches, {s:.1f} s)")
+        return entry
+    got = re.fullmatch(r"range-min table of (\d+) levels x (\d+) entries "
+                       r"would overflow int32 flat indexing", err)
+    if not got or int(got[1]) * int(got[2]) < FLAT_INDEX_LIMIT or \
+            spy.rmq[-1][0] != entry["nd"]:
+        raise AssertionError(f"{label}: refused with {err!r} on the tables "
+                             f"{spy.rmq}, nd {entry['nd']}")
+    log(f"[scale] {tag}: {label} refused after {s:.1f} s: nd {entry['nd']} x "
+        f"{entry['dict_levels']} levels = {entry['dict_flat']} "
+        f"({entry['dict_flat_share']:.1%} of 2^31); {err}")
+    return entry
+
+
+def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
+                refuse_mbp=128, dcn_device="cuda"):
+    """The main path at BASELINE.md's sizes on one card (module docstring,
+    phase 14): 10 and 20 genome-sized documents of doc_mbp Mbp (rows a-d2),
+    the 8-doc bench collection at bench_mbp (e), the inputs the range-min
+    guard must refuse (f) and the KR kernel on the largest ext (k). Every
+    comparison raises on a difference; nothing is caught but the refusal
+    that row f expects. dcn_device: the device of row d2's workers."""
+    import numpy as np
+    from mumemto_tpu_torch import cli, engine, options, refbuilder
+    from mumemto_tpu_torch.analysis import merge as merge_mod
+    from mumemto_tpu_torch.kernels import kr_mask
+    from mumemto_tpu_torch.parallel import mumemtom
+    t_phase = time.perf_counter()
+    out = {"paths": {}, "rows": {}, "refused": {}}
+    jobs = []
+    n_small, n_big = SCALE_DOCS
+
+    # a, b: 10 documents, partial multi-MUMs (-k -1) and -f 3
+    docs_a = _synth_collection(n_small * doc_mbp, n_small, seed=0)
+    rb_a = _rb_of(docs_a)
+    for key, kw in (("a", {"num_distinct_docs": -1}),
+                    ("b", {"rare_freq": 3, "max_mem_freq": 0})):
+        opts = options.normalize(n_small, quiet=True, **kw)
+        flags = "-k -1" if key == "a" else "-f 3"
+        label = f"{n_small} docs x {doc_mbp:g} Mbp {flags}"
+        entry, res = _scale_scan(torch, key, label, rb_a, opts,
+                                 n_small * doc_mbp)
+        del res
+        if key == "a" and opts.num_distinct != n_small - 1:
+            raise AssertionError(f"-k -1 resolved to k = {opts.num_distinct}")
+        out["rows"][key] = entry
+        jobs.append((key, rb_a, opts, n_small * doc_mbp))
+
+    # c: 20 documents from 20 FASTAs through the CLI, strict MUMs
+    docs_c = _synth_collection(n_big * doc_mbp, n_big, seed=0)
+    rb_c = _rb_of(docs_c)
+    doc_lens = [int(d.size) for d in docs_c]
+    opts_c = options.normalize(n_big, quiet=True)
+    with tempfile.TemporaryDirectory() as work:
+        fastas = _write_fastas(docs_c, work)
+        union = os.path.join(work, "union")
+
+        cli_fns = {"fasta": (refbuilder, "build_from_files"),
+                   "scan": (engine, "find_matches"),
+                   "write": (engine, "write_outputs")}
+        label = f"{n_big} docs x {doc_mbp:g} Mbp, cli.main from FASTA"
+        entry, rc = _scale_runs(torch, label, lambda _t: cli.main(
+            fastas + ["-o", union]), n_big * doc_mbp, cli_fns)
+        want = _mums_set(union + ".mums", n_big)
+        entry.update(num_docs=n_big, text_chars=int(rb_c.text.size), rc=rc,
+                     matches=len(want),
+                     size_cap=engine.interval_size_cap(opts_c, n_big),
+                     union_terminal_touching=sum(
+                         _touches_terminal(r, doc_lens) for r in want))
+        _scale_line("c", entry)
+        if rc != 0:
+            raise AssertionError(f"{label}: exit {rc}")
+        out["rows"]["c"] = entry
+        jobs.append(("c", rb_c, opts_c, n_big * doc_mbp))
+
+        # d: MumemtoM, 2 anchor partitions in one process, anchor merge
+        parts = []
+        real, spy = _partition_spy(torch, mumemtom, kr_mask, parts)
+        timer = SumTimer(torch)
+        split = _Split(torch, {
+            **cli_fns,
+            "merge": (mumemtom, "merge_partition_outputs"),
+            "merge_read": (merge_mod, "parse_candidate"),
+            "merge_fold": (merge_mod, "merge_partitions")}, phase=timer)
+        anchor = os.path.join(work, "anchor")
+        mumemtom.scan_partition = spy
+        try:
+            with split, _PrepSpy() as prep:
+                path, s, lp = _counted(
+                    torch, lambda: mumemtom.run_partitioned_files(
+                        fastas, anchor, num_partitions=2, anchor=True,
+                        device="cuda"))
+        finally:
+            mumemtom.scan_partition = real
+        split_parts = mumemtom.auto_partition(fastas, 2, anchor=True)
+        order = [fastas.index(f) for f in split_parts[0]] + [
+            fastas.index(f) for p in split_parts[1:] for f in p[1:]]
+        got = _mums_set(path, n_big, order)
+        diff = want ^ got
+        terminal = [r for r in diff if _touches_terminal(r, doc_lens)]
+        row_d = {"label": f"{n_big} docs, MumemtoM 2 anchor partitions",
+                 "s": s, "launches": lp, "partitions": parts,
+                 "partition_docs": [len(p) for p in split_parts],
+                 "partition_sizes": [
+                     {k: z[k] for k in ("nd", "nr", "lvl_cap", "phrases")}
+                     for z in prep.sizes],
+                 "rmq_tables": sorted(set(prep.rmq)),
+                 "split_s": split.s, "calls": split.calls,
+                 "stages_s": timer.stages, "matches": len(got),
+                 "only_union": len(want - got),
+                 "only_merged": len(got - want),
+                 "terminal_touching_differences": len(terminal)}
+        log(f"[scale] d: {json.dumps(row_d)}")
+        if len(terminal) != len(diff) or [p["kr_launches"] for p in parts] \
+                != [1, 1] or lp != {"kr_break_mask": 2, "add_one": 0}:
+            raise AssertionError(f"MumemtoM at {n_big} docs: "
+                                 f"{len(diff) - len(terminal)} MUMs differ "
+                                 "from the union's away from the "
+                                 f"terminators, launches {lp}, {parts}")
+        out["rows"]["d"] = row_d
+
+        # d2: parallel/dcn, two worker processes sharing the card
+        torch.cuda.empty_cache()
+        worker, filelist, env = _dcn_setup(work, fastas, "scale")
+        prefix = os.path.join(work, "scale_dcn")
+        wall, ranks, sizes = _dcn_run("scale dcn", worker, prefix, filelist,
+                                      False, env, dcn_device, anchor)
+        out["rows"]["d2"] = {"label": f"{n_big} docs, dcn pair", "wall_s": wall,
+                             "ranks": ranks, "sizes": sizes,
+                             "single_process_s": s}
+        log(f"[scale] d2: pair {wall:.3f} s beside {s:.3f} s in one "
+            f"process; {json.dumps(out['rows']['d2'])}")
+    for key in "abc":
+        out["paths"][out["rows"][key]["label"]] = out["rows"][key]["launches"]
+    out["paths"][out["rows"]["d"]["label"]] = lp
+    out["paths"][out["rows"]["d2"]["label"]] = {
+        k: sum(r[k] for r in ranks) for k in ("kr_break_mask", "add_one")}
+
+    # k: the KR kernel on row c's ext against its plain version
+    ext = torch.from_numpy(_ext_of(rb_c.text, 10)).to(engine.resolve("cuda"))
+    n_c = int(rb_c.text.size)
+    m_k, c_k = kr_mask.break_mask(ext, n_c, 10, 100)
+    m_p, c_p = kr_mask.break_mask_plain(ext, n_c, 10, 100)
+    err = max(int((m_k != m_p).sum()), abs(int(c_k) - int(c_p)))
+    del m_k, m_p
+    ne = int(ext.numel())
+    out["kernel"] = {
+        "ne": ne, "breaks": int(c_k), "mismatches": err,
+        "ms": min(_event_ms(torch, lambda: kr_mask.break_mask(
+            ext, n_c, 10, 100), 20) for _ in range(2)),
+        "plain_ms": _event_ms(torch, lambda: kr_mask.break_mask_plain(
+            ext, n_c, 10, 100), 2),
+        "bound_ms": 2 * ne / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"[scale] k: KR kernel on row c's ext: {json.dumps(out['kernel'])}")
+    if err:
+        raise AssertionError("kr_mask kernel != plain on row c's ext")
+    report["kernel_max_abs_err"] = max(report.get("kernel_max_abs_err", 0),
+                                       err)
+    del ext
+
+    # e: the 8-doc bench collection at the largest sizes run so far
+    opts_e = options.normalize(N_DOCS, quiet=True)
+    for mbp in bench_mbp:
+        rb_e = _bench_rb(mbp)
+        entry, res = _scale_scan(torch, "e", f"bench {mbp:g} Mbp", rb_e,
+                                 opts_e, mbp)
+        del res
+        out["rows"][f"e {mbp:g}"] = entry
+        out["paths"][entry["label"]] = entry["launches"]
+    jobs.append((f"e {mbp:g}", rb_e, opts_e, mbp))
+
+    # f: past the guard, the bench collection and the 10 documents at 1%
+    # divergence; an input that runs is a finding: the next size is tried
+    for key, first, make in (
+            ("bench", refuse_mbp, lambda m: _bench_rb(m)),
+            ("1% SNP", n_small * doc_mbp, lambda m: _rb_of(_synth_collection(
+                m, n_small, seed=0, snp_rate=0.01)))):
+        tries = []
+        for step in range(3):
+            mbp = first * 1.25 ** step
+            rb = make(mbp)
+            opts = options.normalize(rb.num_docs, quiet=True)
+            entry = _refused(torch, "f", f"{key} {rb.num_docs} docs "
+                             f"{mbp:g} Mbp", rb, opts)
+            tries.append(entry)
+            out["paths"][entry["label"]] = entry["launches"]
+            if entry["refused"]:
+                break
+        else:
+            raise AssertionError(f"f {key}: no size up to {mbp:g} Mbp was "
+                                 "refused")
+        out["refused"][key] = tries
+
+    # the counts of a, b, c and e against live baseline_cpu runs
+    del rb_a, rb
+    t0 = time.perf_counter()
+    base = _baselines_together(jobs)
+    out["baseline_wall_s"] = time.perf_counter() - t0
+    for key, (b_s, b_matches) in base.items():
+        row = out["rows"][key]
+        row.update(baseline_s=b_s, baseline_matches=b_matches)
+        log(f"[scale] {key}: {row['matches']} matches, baseline_cpu "
+            f"{b_matches} in {b_s:.1f} s (runs started together)")
+        if row["matches"] != b_matches or not b_matches:
+            raise AssertionError(f"{row['label']}: {row['matches']} matches, "
+                                 f"baseline_cpu {b_matches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[scale] the phase took {out['phase_s']:.1f} s (baselines "
+        f"{out['baseline_wall_s']:.1f} s)")
+    report["scale"] = out
+
+
 def _sync_all(torch):
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
@@ -2191,6 +2640,7 @@ def main() -> int:
         phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work)
         phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work)
     phase_real(torch, report)
+    phase_scale(torch, report)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
     if foreign:
@@ -2208,6 +2658,7 @@ def main() -> int:
     report["path_launches"].update(report["sharded"]["paths"])
     report["path_launches"].update(report["modules"]["paths"])
     report["path_launches"].update(report["real"]["paths"])
+    report["path_launches"].update(report["scale"]["paths"])
     pr = report["probe"]
     # add_one's bound: the (8, 128) int32 tile read once and written once
     probe_bound_ms = 2 * 8 * 128 * 4 / HBM_BYTES_PER_S * 1e3
