@@ -164,7 +164,7 @@ class StageTimer:
         self.t = time.perf_counter()
 
     def __call__(self, name):
-        self.torch.cuda.synchronize()
+        _sync_all(self.torch)
         now = time.perf_counter()
         self.stages[name] = now - self.t
         self.t = now
@@ -180,17 +180,29 @@ class SumTimer(StageTimer):
         self.stages[name] += before
 
 
-def _event_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+def _event_ms(torch, fn, reps: int, device=None) -> float:
+    """CUDA-event ms per call of fn, on `device`'s current stream (the
+    current device's by default: an event is recorded on the stream of the
+    device that is current when it is recorded)."""
+    with _current(torch, device):
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+
+def _current(torch, device):
+    """A context in which `device` (a CUDA torch.device) is the current
+    device; for None or a CPU device it does nothing."""
+    if device is None or device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _synth_collection(total_mbp: float, n_docs: int, seed: int = 0,
@@ -293,10 +305,16 @@ def _build_cpu_baseline():
 
 
 def _run_cpu_baseline(text, seq_lengths, opts, mbp):
-    """(Mbp/s, matches) of one run of native/baseline_cpu, the single-core
-    C++ SA-IS + Kasai + LCP-interval scan, on the same input; the binary
-    is built first when missing or stale."""
-    import tempfile
+    """(Mbp/s, matches) of one run of native/baseline_cpu (_cpu_baseline)."""
+    r = _cpu_baseline(text, seq_lengths, opts)
+    return mbp / r["t_total"], r["matches"]
+
+
+def _cpu_baseline(text, seq_lengths, opts) -> dict:
+    """The JSON record of one run of native/baseline_cpu, the single-core
+    C++ SA-IS + Kasai + LCP-interval scan, on the same input (matches,
+    sum_len, occ_hash, t_total, ...); the binary is built first when
+    missing or stale."""
     _build_cpu_baseline()
     with tempfile.TemporaryDirectory() as td:
         tf = os.path.join(td, "text.bin")
@@ -314,8 +332,7 @@ def _run_cpu_baseline(text, seq_lengths, opts, mbp):
     if out.returncode != 0:
         raise AssertionError(f"native/baseline_cpu failed: "
                              f"{out.stderr[-2000:]}")
-    r = json.loads(out.stdout)
-    return mbp / r["t_total"], r["matches"]
+    return json.loads(out.stdout)
 
 
 def _rb_of(docs):
@@ -818,7 +835,7 @@ def _counted(torch, fn):
     kr_mask.launches = probe.launches = 0
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    _sync_all(torch)
     return out, time.perf_counter() - t0, {"kr_break_mask": kr_mask.launches,
                                            "add_one": probe.launches}
 
@@ -1735,47 +1752,77 @@ _DCN_WORKER = r"""
 import json, os, sys, time
 t0 = time.perf_counter()
 sys.path.insert(0, sys.argv[5])
+import torch
+import chip_smoke
 from mumemto_tpu_torch.kernels import kr_mask, probe
 from mumemto_tpu_torch.parallel import dcn, mumemtom
 rank, port, prefix = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 files = open(sys.argv[4]).read().split()
 collective, device = sys.argv[6] == "1", sys.argv[7]
-scanned = []
-real = mumemtom.scan_partition
+nproc, nparts = int(sys.argv[8]), int(sys.argv[9])
+card = torch.device(device).type == "cuda"
+if card:
+    torch.cuda.init()  # a card's memory counters exist only after it
+scanned, parts, kr_devices = [], [], []
+real_scan, real_kr = mumemtom.scan_partition, kr_mask.break_mask
 def scan(pfiles, pfx, **kw):
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    with chip_smoke._PrepSpy() as spy:
+        out = real_scan(pfiles, pfx, **kw)
+    if card:
+        torch.cuda.synchronize(device)
     scanned.append(int(pfx.rsplit("_part", 1)[1]))
-    return real(pfiles, pfx, **kw)
+    flat = chip_smoke._flat_sizes(spy)
+    parts.append({
+        "docs": len(pfiles), "s": time.perf_counter() - t,
+        "peak_alloc_bytes":
+            torch.cuda.max_memory_allocated(device) if card else 0,
+        **{k: spy.sizes[0][k] for k in ("d_len", "nd", "nr", "lvl_cap")},
+        **{k: flat[k] for k in ("dict_levels", "dict_flat_share")}})
+    return out
+def break_mask(ext, *a):
+    if ext.device.type == "cuda":
+        kr_devices.append(str(ext.device))
+    return real_kr(ext, *a)
 mumemtom.scan_partition = scan
+kr_mask.break_mask = break_mask
 kr_mask.launches = probe.launches = 0
-dcn.initialize("127.0.0.1:" + port, 2, rank)
+dcn.initialize("127.0.0.1:" + port, nproc, rank)
 t1 = time.perf_counter()
-dcn.run_partitioned_dcn(files, prefix, anchor=True, num_partitions=2,
+dcn.run_partitioned_dcn(files, prefix, anchor=True, num_partitions=nparts,
                         collective=collective, device=device)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mumemto_tpu", "bench"))
 assert not bad, bad
 print("DCN_WORKER " + json.dumps({
-    "rank": rank, "scanned": scanned, "kr_break_mask": kr_mask.launches,
+    "rank": rank, "device": device, "scanned": scanned, "partitions": parts,
+    "kr_break_mask": kr_mask.launches, "kr_devices": kr_devices,
     "add_one": probe.launches, "start_s": t1 - t0,
-    "run_s": time.perf_counter() - t1}))
+    "run_s": time.perf_counter() - t1,
+    "peak_alloc_bytes":
+        torch.cuda.max_memory_allocated(device) if card else 0}))
 """
 
 
-def _dcn_pair(worker, prefix, filelist, collective, env, device):
-    """Two workers of one gloo group on a free port of 127.0.0.1, run to
-    their end: (the processes, each one's (stdout, stderr))."""
+def _dcn_group(worker, prefix, filelist, collective, env, devices, nparts):
+    """One worker per entry of `devices` (rank r on devices[r]), one gloo
+    group on a free port of 127.0.0.1, run to their end: (the processes,
+    each one's (stdout, stderr))."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     procs = [subprocess.Popen(
         [sys.executable, worker, str(rank), str(port), prefix, filelist,
-         ROOT, "1" if collective else "0", device], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env) for rank in (0, 1)]
+         ROOT, "1" if collective else "0", device, str(len(devices)),
+         str(nparts)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for rank, device in enumerate(devices)]
     ends = []
     try:
         for p in procs:
-            ends.append(p.communicate(timeout=300))
+            ends.append(p.communicate(timeout=900))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1800,26 +1847,27 @@ def _dcn_setup(work, fastas, tag):
     return worker, filelist, env
 
 
-def _dcn_run(label, worker, prefix, filelist, collective, env, device,
-             want_files):
-    """One dcn pair to its end (one retry on a fresh port: another job on
-    the machine can take the port between its probe and the workers' bind,
-    and a loaded host can miss gloo's connect window; a real fault shows
-    again). Rank r must have scanned partition r, launching the KR kernel
-    once on the card (never on the CPU), and the merged files must equal
-    want_files' (a prefix). Returns (pair seconds, the ranks' records,
-    the files' sizes)."""
+def _dcn_run(label, worker, prefix, filelist, collective, env, devices,
+             want_files, nparts=2):
+    """One dcn group to its end, rank r on devices[r] (one retry on a fresh
+    port: another job on the machine can take the port between its probe
+    and the workers' bind, and a loaded host can miss gloo's connect
+    window; a real fault shows again). Of nparts anchor partitions, rank r
+    must have scanned r, r + P, ..., launching the KR kernel once a
+    partition on its own card ("cuda" is cuda:0 in every process) and
+    never on the CPU; with want_files (a prefix) the merged files must
+    equal its. Returns (group seconds, the ranks' records, the files'
+    sizes)."""
     for attempt in (0, 1):
         t0 = time.perf_counter()
-        procs, ends = _dcn_pair(worker, prefix, filelist, collective, env,
-                                device)
+        procs, ends = _dcn_group(worker, prefix, filelist, collective, env,
+                                 devices, nparts)
         wall = time.perf_counter() - t0
         if all(p.returncode == 0 for p in procs):
             break
         log(f"[dcn] {label}: attempt {attempt} exited "
             f"{[p.returncode for p in procs]}: "
             f"{' | '.join(se[-600:] for _so, se in ends)}")
-    want_kr = 1 if device == "cuda" else 0
     ranks = []
     for rank, (p, (so, se)) in enumerate(zip(procs, ends)):
         lines = [ln for ln in so.splitlines()
@@ -1829,11 +1877,18 @@ def _dcn_run(label, worker, prefix, filelist, collective, env, device,
                                  f"{p.returncode}: {so[-1000:]} "
                                  f"{se[-3000:]}")
         rec = json.loads(lines[0][len("DCN_WORKER "):])
-        if rec["scanned"] != [rank] or rec["kr_break_mask"] != want_kr or \
-                rec["add_one"]:
-            raise AssertionError(f"{label}: rank {rank} reports {rec}")
+        mine = list(range(rank, nparts, len(devices)))
+        card = devices[rank] if ":" in devices[rank] else \
+            devices[rank] + ":0"
+        want_kr = [card] * len(mine) if card.startswith("cuda") else []
+        if rec["scanned"] != mine or rec["kr_devices"] != want_kr or \
+                rec["kr_break_mask"] != len(want_kr) or rec["add_one"]:
+            raise AssertionError(f"{label}: rank {rank} on "
+                                 f"{devices[rank]} reports {rec}")
         ranks.append(rec)
     sizes = {}
+    if want_files is None:
+        return wall, ranks, sizes
     for ext in (".mums", ".athresh", ".lengths"):
         with open(prefix + ext, "rb") as a, open(want_files + ext, "rb") as b:
             ga, gb = a.read(), b.read()
@@ -1844,11 +1899,12 @@ def _dcn_run(label, worker, prefix, filelist, collective, env, device,
     return wall, ranks, sizes
 
 
-def _dcn_pairs(out, work, anchor_s):
+def _dcn_pairs(torch, out, work, anchor_s):
     """parallel/dcn with two worker processes that share the card: gloo
     over 127.0.0.1 on a free port, phase 10's 8 FASTAs, anchor partitions,
     the host fold and the collective fold. Each run's files must equal
-    phase 10's MumemtoM anchor run's, which are in `work`."""
+    phase 10's MumemtoM anchor run's, which are in `work`. Then four
+    workers on 4 partitions (_dcn_four)."""
     fastas = [os.path.join(work, f"d{i}.fa") for i in range(N_DOCS)]
     worker, filelist, env = _dcn_setup(work, fastas, "dcn")
     out["dcn"] = {"single_process_anchor_s": anchor_s}
@@ -1856,7 +1912,7 @@ def _dcn_pairs(out, work, anchor_s):
         label = "dcn collective" if collective else "dcn host fold"
         prefix = os.path.join(work, label.replace(" ", "_"))
         wall, ranks, sizes = _dcn_run(label, worker, prefix, filelist,
-                                      collective, env, "cuda",
+                                      collective, env, ["cuda"] * 2,
                                       os.path.join(work, "anchor"))
         out["dcn"][label] = {"wall_s": wall, "ranks": ranks, "sizes": sizes}
         log(f"[dcn] {label}: pair {wall:.3f} s beside {anchor_s:.3f} s in "
@@ -1864,6 +1920,31 @@ def _dcn_pairs(out, work, anchor_s):
         out["paths"][label] = {
             "kr_break_mask": sum(r["kr_break_mask"] for r in ranks),
             "add_one": sum(r["add_one"] for r in ranks)}
+    _dcn_four(torch, out, work, fastas)
+
+
+def _dcn_four(torch, out, work, fastas):
+    """parallel/dcn with four worker processes that share the card (the
+    P-rank path of `--cards` rows m1 and m2) on the same FASTAs in 4
+    anchor partitions, host fold: files equal to a single-process
+    run_partitioned_files with 4 partitions."""
+    from mumemto_tpu_torch.parallel import mumemtom
+    single = os.path.join(work, "anchor4")
+    path, s, launches = _counted(torch, lambda: mumemtom.run_partitioned_files(
+        fastas, single, num_partitions=4, anchor=True, device="cuda"))
+    _kr_used("MumemtoM 4 anchor partitions", launches)
+    out["paths"]["MumemtoM 4 anchor partitions"] = launches
+    worker, filelist, env = _dcn_setup(work, fastas, "dcn4")
+    label = "dcn 4 ranks"
+    wall, ranks, sizes = _dcn_run(label, worker, os.path.join(work, "dcn4"),
+                                  filelist, False, env, ["cuda"] * 4, single,
+                                  4)
+    out["dcn"][label] = {"wall_s": wall, "single_process_s": s,
+                         "ranks": ranks, "sizes": sizes}
+    log(f"[dcn] {label}: {wall:.3f} s beside {s:.3f} s in one process; "
+        f"{json.dumps(out['dcn'][label])}")
+    out["paths"][label] = {k: sum(r[k] for r in ranks)
+                           for k in ("kr_break_mask", "add_one")}
 
 
 def phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work):
@@ -1876,7 +1957,7 @@ def phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work):
     _shard_dict_tables(torch, out)
     _partition_mesh(torch, out)
     torch.cuda.empty_cache()
-    _dcn_pairs(out, work, report["slice"]["mumemtom anchor"]["s"])
+    _dcn_pairs(torch, out, work, report["slice"]["mumemtom anchor"]["s"])
     report["modules"] = out
 
 
@@ -2423,7 +2504,7 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
         worker, filelist, env = _dcn_setup(work, fastas, "scale")
         prefix = os.path.join(work, "scale_dcn")
         wall, ranks, sizes = _dcn_run("scale dcn", worker, prefix, filelist,
-                                      False, env, dcn_device, anchor)
+                                      False, env, [dcn_device] * 2, anchor)
         out["rows"]["d2"] = {"label": f"{n_big} docs, dcn pair", "wall_s": wall,
                              "ranks": ranks, "sizes": sizes,
                              "single_process_s": s}
@@ -2533,56 +2614,568 @@ class _AllCardsTimer(SumTimer):
         for i in range(len(before)):
             torch.cuda.reset_peak_memory_stats(i)
 
+    def peaks(self):
+        """Each card's peak allocation over every stage so far."""
+        return [max(p) for p in zip(*self.stage_peaks.values())]
 
-def cards_main() -> int:
-    """`python3 chip_smoke.py --cards`: the sharded scan with its 8 shards
-    spread over every visible card (two a card on four), the dictionary
-    index on one device and sharded, in the order off, on, on, off; per
-    run the wall, the stages and each card's peak, over the run and within
-    each stage (dict_index above all). MUM 8 Mbp and
-    MUM 32 Mbp (nr = 2^26); the bytes must equal a single-device run's.
-    Writes chiprun_out/chip_smoke_cards.json."""
-    sys.path.insert(0, ROOT)
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
+
+CARD_DOCS = (20, 40)  # C20 (BASELINE.md config 4) and C40, past one card
+RANKS = 4  # dcn ranks of rows m1 and m2, one card each on four cards
+KR_MBP = 8  # row k's first ext: the bench collection at 8 Mbp (ne = 2^24)
+
+
+def _pow2_at_least(x: int, floor: int) -> int:
+    """The least power of two >= max(x, floor), floor a power of two."""
+    p = floor
+    while p < x:
+        p *= 2
+    return p
+
+
+def _card_peaks(torch):
+    return [torch.cuda.max_memory_allocated(i)
+            for i in range(torch.cuda.device_count())]
+
+
+def _reset_peaks(torch):
+    _sync_all(torch)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def _gib(peaks):
+    return "[" + ", ".join(f"{p / 2**30:.2f}" for p in peaks) + "] GiB"
+
+
+def _occ_stats(path, num_docs, order=None) -> dict:
+    """The match count, the sum of lengths and native/baseline_cpu's
+    occurrence hash (its emit_mum: an order-free uint64 sum of
+    mix(offset * 131 + doc * 7 + (3 if '-') + length) over every
+    occurrence) of a .mums file; with `order` (column j of the file is
+    document order[j]) the columns are put in document order first."""
+    import numpy as np
+    from mumemto_tpu_torch import formats
+    L, S, T = formats.parse_mums(path, num_docs)
+    if order is not None:
+        cols = [order.index(d) for d in range(num_docs)]
+        S, T = S[:, cols], T[:, cols]
+    u = np.uint64
+    x = (S.astype(u) * u(131) + np.arange(num_docs, dtype=u) * u(7)
+         + np.where(T, 0, 3).astype(u) + L.astype(u)[:, None])[S >= 0]
+    x ^= x >> u(33)
+    x *= u(0xff51afd7ed558ccd)
+    x ^= x >> u(33)
+    return {"matches": int(L.size), "sum_len": int(L.astype(np.int64).sum()),
+            "occ_hash": int(x.sum(dtype=u))}
+
+
+def _busy_overlap(spans) -> dict:
+    """Device activity [(card, start_us, end_us)] summed up: each card's
+    busy us (the union of its spans), the us in which at least one and at
+    least two cards were busy, and the span from first start to last
+    end."""
+    by_card = {}
+    for card, a, b in spans:
+        by_card.setdefault(card, []).append((a, b))
+    merged = {}
+    for card, ivs in by_card.items():
+        runs = []
+        for a, b in sorted(ivs):
+            if runs and a <= runs[-1][1]:
+                runs[-1][1] = max(runs[-1][1], b)
+            else:
+                runs.append([a, b])
+        merged[card] = runs
+    edges = sorted((t, step) for runs in merged.values() for a, b in runs
+                   for t, step in ((a, 1), (b, -1)))
+    any_us = two_us = 0.0
+    depth, prev = 0, None
+    for t, step in edges:
+        if prev is not None:
+            any_us += (t - prev) * (depth >= 1)
+            two_us += (t - prev) * (depth >= 2)
+        depth, prev = depth + step, t
+    return {"busy_us": {str(c): sum(b - a for a, b in runs)
+                        for c, runs in sorted(merged.items())},
+            "any_busy_us": any_us, "overlap_us": two_us,
+            "span_us": (max(b for _c, _a, b in spans)
+                        - min(a for _c, a, _b in spans)) if spans else 0.0}
+
+
+def _trace_cards(torch, fn, tmp):
+    """(fn(), device spans): fn under torch.profiler (CPU and, with a card,
+    CUDA activity); the spans [(card, start_us, end_us)] of the kernels,
+    copies and memsets of its chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out = fn()
+        _sync_all(torch)
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    spans = [(int(e["args"]["device"]), float(e["ts"]),
+              float(e["ts"]) + float(e["dur"])) for e in events
+             if e.get("ph") == "X" and e.get("cat") in (
+                 "kernel", "gpu_memcpy", "gpu_memset")
+             and "device" in e.get("args", {})]
+    return out, spans
+
+
+def _order_of(fastas, parts):
+    """Column j of an anchor-merged .mums is document order[j]."""
+    return [fastas.index(f) for f in parts[0]] + [
+        fastas.index(f) for p in parts[1:] for f in p[1:]]
+
+
+def _cards_kr(torch, out, cards, c40, ranks, kr_mbp):
+    """Row k: the KR kernel against its plain version on every card, on
+    the bench collection's ext at kr_mbp (ne = 2^24 at 8 Mbp) and on one
+    C40 partition's (the anchor and every ranks-th document after it, as
+    mumemtom.auto_partition makes partition 0); CUDA-event times on the
+    card beside the memory bound."""
+    from mumemto_tpu_torch.kernels import kr_mask
+    rows = []
+    inputs = ((f"bench {kr_mbp:g} Mbp", _bench_rb(kr_mbp).text),
+              (f"C{len(c40)} partition 0", _rb_of([c40[0]] + c40[1::ranks]).text))
+    for tag, text in inputs:
+        ext_np, n_real = _ext_of(text, 10), int(text.size)
+        for dev in cards:
+            ext = torch.from_numpy(ext_np).to(dev)
+            before = kr_mask.launches
+            m_k, c_k = kr_mask.break_mask(ext, n_real, 10, 100)
+            launched = kr_mask.launches - before
+            m_p, c_p = kr_mask.break_mask_plain(ext, n_real, 10, 100)
+            err = max(int((m_k != m_p).sum()), abs(int(c_k) - int(c_p)))
+            del m_k, m_p
+            rec = {"input": tag, "card": str(dev), "ne": int(ext.numel()),
+                   "breaks": int(c_k), "mismatches": err,
+                   "launches": launched,
+                   "ms": min(_event_ms(torch, lambda: kr_mask.break_mask(
+                       ext, n_real, 10, 100), 20, dev) for _ in range(2)),
+                   "plain_ms": _event_ms(
+                       torch, lambda: kr_mask.break_mask_plain(
+                           ext, n_real, 10, 100), 2, dev),
+                   "bound_ms": 2 * ext.numel() / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"}
+            del ext
+            log(f"[cards] k: {json.dumps(rec)}")
+            if err or launched != 1:
+                raise AssertionError(f"k: KR kernel on {dev}, {tag}: {rec}")
+            rows.append(rec)
+    out["k"] = rows
+
+
+def _cards_m1(torch, out, work, docs, doc_mbp, devices):
+    """Row m1, BASELINE.md config 4 as deployed: dcn with one rank per
+    entry of `devices`, in as many anchor partitions, on the C20 FASTAs,
+    with the host fold and with the collective fold. Each run's files must
+    equal mumemtom.run_partitioned_files' in one process on one card, and
+    its MUM set the union's on one card but for MUMs that touch a
+    document's first or last base (counted). Returns what rows s and c
+    take from it."""
+    from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.kernels import kr_mask
+    from mumemto_tpu_torch.parallel import mumemtom
+    n, nparts = len(docs), len(devices)
+    d = os.path.join(work, "m1")
+    os.makedirs(d)
+    fastas = _write_fastas(docs, d)
+    doc_lens = [int(x.size) for x in docs]
+    rb = _rb_of(docs)
+    opts = options.normalize(n, quiet=True)
+    _reset_peaks(torch)
+    with _PrepSpy() as prep:
+        res, union_s, lu = _counted(torch, lambda: engine.find_matches(
+            rb, opts, device="cuda"))
+    union_peaks = _card_peaks(torch)
+    _kr_used("m1 union", lu)
+    union = os.path.join(d, "union")
+    engine.write_outputs(res, rb, union)
+    union_bytes = res.output_bytes()
+    del res
+    want = _mums_set(union + ".mums", n)
+    parts = []
+    real, spy = _partition_spy(torch, mumemtom, kr_mask, parts)
+    single = os.path.join(d, "single")
+    mumemtom.scan_partition = spy
+    try:
+        _, single_s, ls = _counted(
+            torch, lambda: mumemtom.run_partitioned_files(
+                fastas, single, num_partitions=nparts, anchor=True,
+                device="cuda"))
+    finally:
+        mumemtom.scan_partition = real
+    if ls != {"kr_break_mask": nparts, "add_one": 0}:
+        raise AssertionError(f"m1: one-process MumemtoM launches {ls}")
+    split = mumemtom.auto_partition(fastas, nparts, anchor=True)
+    order = _order_of(fastas, split)
+    torch.cuda.empty_cache()
+    worker, filelist, env = _dcn_setup(d, fastas, "m1")
+    runs = {}
+    for collective in (False, True):
+        label = "collective fold" if collective else "host fold"
+        prefix = os.path.join(d, "dcn_" + label.split()[0])
+        wall, ranks, _sizes = _dcn_run(f"m1 {label}", worker, prefix,
+                                       filelist, collective, env, devices,
+                                       single, nparts)
+        got = _mums_set(prefix + ".mums", n, order)
+        diff = want ^ got
+        terminal = [r for r in diff if _touches_terminal(r, doc_lens)]
+        runs[label] = {"wall_s": wall, "ranks": ranks, "matches": len(got),
+                       "only_union": len(want - got),
+                       "only_merged": len(got - want),
+                       "terminal_touching_differences": len(terminal)}
+        log(f"[cards] m1 {label}: {nparts} ranks {wall:.3f} s beside "
+            f"{single_s:.3f} s in one process; ranks' s to initialize's "
+            f"end {[round(r['start_s'], 3) for r in ranks]}, run s "
+            f"{[round(r['run_s'], 3) for r in ranks]} (phase 14 row d2: "
+            f"9.20 / 12.53 s a rank on a shared card), peaks "
+            f"{_gib([r['peak_alloc_bytes'] for r in ranks])} on "
+            f"{[r['device'] for r in ranks]}; {len(got)} MUMs, "
+            f"{len(diff)} differ from the union's, {len(terminal)} of them "
+            "at document ends")
+        if len(terminal) != len(diff):
+            raise AssertionError(f"m1 {label}: {len(diff) - len(terminal)} "
+                                 "MUMs differ from the union's away from "
+                                 "the document ends")
+    out["m1"] = {
+        "docs": n, "mbp": n * doc_mbp, "partitions": nparts,
+        "devices": devices, "partition_docs": [len(p) for p in split],
+        "union": {"s": union_s, "peak_alloc_bytes": union_peaks,
+                  "matches": len(want), **prep.sizes[0],
+                  "terminal_touching": sum(_touches_terminal(r, doc_lens)
+                                           for r in want)},
+        "single_process": {"s": single_s, "partitions": parts},
+        "runs": runs}
+    # the dictionary's growth a document, between the largest partition
+    # and the union
+    big = max((p for r in runs["host fold"]["ranks"]
+               for p in r["partitions"]), key=lambda p: p["docs"])
+    out["m1"]["d_len_per_doc"] = ((prep.sizes[0]["d_len"] - big["d_len"])
+                                  / (n - big["docs"]))
+    log(f"[cards] m1: {json.dumps(out['m1'])}")
+    return {"rb": rb, "union_bytes": union_bytes, "single": single,
+            "parts": [f"{single}_part{i}.mums" for i in range(nparts)],
+            "d_len_per_doc": out["m1"]["d_len_per_doc"]}
+
+
+def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc):
+    """Row m2, the collection one card refuses: the union on one card must
+    be refused by the range-min guard; then dcn with one rank per entry of
+    `devices` on as many anchor partitions, host fold. The merged .mums's
+    count, sum of lengths and occurrence hash are held against
+    native/baseline_cpu on the union later (_cards_baseline). The largest
+    collection this takes is reasoned from the partitions' dictionaries,
+    which grow by per_doc (m1's measure) a document."""
+    from mumemto_tpu_torch import options
+    from mumemto_tpu_torch.parallel import mumemtom
+    n, nparts = len(docs), len(devices)
+    d = os.path.join(work, "m2")
+    os.makedirs(d)
+    fastas = _write_fastas(docs, d)
+    rb = _rb_of(docs)
+    opts = options.normalize(n, quiet=True)
+    refused = _refused(torch, "m2", f"C{n} union on one card", rb, opts)
+    if not refused["refused"]:
+        raise AssertionError(f"m2: one card took the C{n} union")
+    torch.cuda.empty_cache()
+    worker, filelist, env = _dcn_setup(d, fastas, "m2")
+    prefix = os.path.join(d, "dcn")
+    wall, ranks, _ = _dcn_run("m2 host fold", worker, prefix, filelist,
+                              False, env, devices, None, nparts)
+    split = mumemtom.auto_partition(fastas, nparts, anchor=True)
+    got = _occ_stats(prefix + ".mums", n, _order_of(fastas, split))
+    parts = [p for r in ranks for p in r["partitions"]]
+    # the docs a partition may hold with nd <= 2^26 (27 levels), the
+    # dictionary growing linearly in its documents
+    big = max(parts, key=lambda p: p["d_len"])
+    docs_max = big["docs"] + int((2**26 - big["d_len"]) // max(per_doc, 1))
+    entry = {"docs": n, "mbp": n * doc_mbp, "devices": devices,
+             "refused": refused, "wall_s": wall, "ranks": ranks,
+             "merged": got, "d_len_per_doc": per_doc,
+             "partition_docs_max": docs_max,
+             "collection_docs_max": nparts * (docs_max - 1) + 1}
+    log(f"[cards] m2: {nparts} ranks {wall:.3f} s; partitions (docs, nd, "
+        f"levels, nr, peak GiB, s): "
+        f"{[(p['docs'], p['nd'], p['dict_levels'], p['nr'], round(p['peak_alloc_bytes'] / 2**30, 2), round(p['s'], 3)) for p in parts]}; "
+        f"ranks' s to initialize's end "
+        f"{[round(r['start_s'], 3) for r in ranks]}, run s "
+        f"{[round(r['run_s'], 3) for r in ranks]}; merged {got}; "
+        f"dictionary {per_doc:.0f} a document, so a partition takes "
+        f"{docs_max} documents under nd = 2^26 and {nparts} cards "
+        f"{entry['collection_docs_max']} genomes of {doc_mbp:g} Mbp")
+    out["m2"] = entry
+    return {"rb": rb, "opts": opts, "got": got}
+
+
+class _CapacitySpy:
+    """The per-shard match counts every sharded scan checks against its M
+    while active (seqpfp._check_capacity wrapped)."""
+
+    def __init__(self):
+        from mumemto_tpu_torch.parallel import seqpfp
+        self.mod = seqpfp
+        self.counts = []
+
+    def __enter__(self):
+        self.real = self.mod._check_capacity
+
+        def check(counts, M, what):
+            self.counts.append([int(c) for c in counts])
+            return self.real(counts, M, what)
+        self.mod._check_capacity = check
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._check_capacity = self.real
+
+
+def _cards_sharded(torch, out, inputs, shards, tmp):
+    """Row s: the sharded scan over mesh.seq_devices(n, "cuda") for each n
+    of `shards` (the first twice) on each input (label, rb, mbp, the
+    single-card bytes or None), M a power of two >= 2^16 above the
+    single-card count (which bounds every shard's); bytes equal to a
+    single-card run in this call; wall, stages, each card's peak, the
+    largest shard's count against the CLI's M = 4096. Then one
+    torch.profiler trace of the first n on the first input: each card's
+    busy time and the time two or more cards were busy at once."""
     from mumemto_tpu_torch import engine, options
     from mumemto_tpu_torch.parallel import mesh, seqpfp
-    ncards = torch.cuda.device_count()
-    report = {"card": _smi(), "cards": ncards, "runs": []}
-    phase_build(report)
+    rows = []
+    trace = None
+    for label, rb, mbp, want in inputs:
+        opts = options.normalize(rb.num_docs, quiet=True)
+        _reset_peaks(torch)
+        timer = _AllCardsTimer(torch)
+        res, s, lc = _counted(torch, lambda: engine.find_matches(
+            rb, opts, device="cuda", phase=timer))
+        if want is not None and res.output_bytes() != want:
+            raise AssertionError(f"s {label}: single-card bytes differ "
+                                 "between two runs")
+        want, matches = res.output_bytes(), res.num_matches
+        del res
+        M = _pow2_at_least(matches, 1 << 16)
+        single = {"input": label, "mbp": mbp, "shards": 1, "wall_s": s,
+                  "stages_s": timer.stages,
+                  "peak_alloc_bytes": timer.peaks(),
+                  "matches": matches, "launches": lc}
+        rows.append(single)
+        log(f"[cards] s {label}: one card {s:.3f} s, peaks "
+            f"{_gib(single['peak_alloc_bytes'])}, {matches} matches; M = {M}")
+
+        def sharded(devs, timer):
+            return seqpfp.find_matches_seq_sharded(rb, opts, devs, M=M,
+                                                   phase=timer)
+        for n in (shards[0], *shards):
+            devs = mesh.seq_devices(n, "cuda")
+            _reset_peaks(torch)
+            timer = _AllCardsTimer(torch)
+            with _CapacitySpy() as cap:
+                res, s, lc = _counted(torch, lambda: sharded(devs, timer))
+            same = res.output_bytes() == want
+            del res
+            worst = max(cap.counts[0])
+            rec = {"input": label, "mbp": mbp, "shards": n,
+                   "devices": [str(x) for x in devs], "M": M, "wall_s": s,
+                   "single_wall_s": single["wall_s"],
+                   "stages_s": timer.stages,
+                   "peak_alloc_bytes": timer.peaks(),
+                   "stage_peak_alloc_bytes": timer.stage_peaks,
+                   "shard_matches": cap.counts[0],
+                   "cli_M_4096_refuses": worst > 4096, "launches": lc,
+                   "bytes_equal": same}
+            rows.append(rec)
+            log(f"[cards] s {label}: {n} shards on {len(set(devs))} "
+                f"card(s) {s:.3f} s beside {single['wall_s']:.3f} s, "
+                f"peaks {_gib(rec['peak_alloc_bytes'])} beside "
+                f"{_gib(single['peak_alloc_bytes'])}, shard matches "
+                f"{cap.counts[0]} (M = 4096 refuses: {worst > 4096}); "
+                + ", ".join(f"{k} {v:.3f}" for k, v in timer.stages.items()))
+            if not same or lc != {"kr_break_mask": 1, "add_one": 0}:
+                raise AssertionError(f"s {label}, {n} shards: bytes equal "
+                                     f"{same}, launches {lc}")
+        if trace is None:
+            n = shards[0]
+            devs = mesh.seq_devices(n, "cuda")
+            t0 = time.perf_counter()
+            res, spans = _trace_cards(torch, lambda: sharded(devs, None),
+                                      tmp)
+            trace = {"input": label, "shards": n,
+                     "wall_s": time.perf_counter() - t0,
+                     "bytes_equal": res.output_bytes() == want,
+                     "device_spans": len(spans), **_busy_overlap(spans)}
+            del res
+            log(f"[cards] s trace: {json.dumps(trace)}")
+            if not trace["bytes_equal"]:
+                raise AssertionError("s: the traced run's bytes differ")
+    out["s"] = {"runs": rows, "trace": trace}
+
+
+def _cards_collective(torch, out, m1):
+    """Row c: merge --collective on m1's one-process partitions (one
+    partition a card by mesh.spread) against the host anchor merge of the
+    same files and m1's merged files; the fold's wall on the cards and
+    its device time on the first."""
+    from mumemto_tpu_torch import cli
+    from mumemto_tpu_torch.analysis import merge as merge_mod
+    from mumemto_tpu_torch.parallel import collective_merge
+    parts = m1["parts"]
+    base = os.path.dirname(m1["single"])
+    host = os.path.join(base, "c_host")
+    rc_h, host_s, _ = _counted(torch, lambda: cli.main(
+        ["merge", *parts, "-o", host]))
+    seen = []
+    real = collective_merge.collective_fold
+
+    def fold(bv, nb, ln, devices):
+        _sync_all(torch)
+        t0 = time.perf_counter()
+        got = real(bv, nb, ln, devices)
+        _sync_all(torch)
+        seen.append({"devices": [str(d) for d in devices],
+                     "n_anchor": int(bv.shape[1]),
+                     "s": time.perf_counter() - t0})
+        return got
+    coll = os.path.join(base, "c_collective")
+    collective_merge.collective_fold = fold
+    try:
+        rc, s, lm = _counted(torch, lambda: cli.main(
+            ["merge", *parts, "-o", coll, "--collective", "--device",
+             "cuda"]))
+    finally:
+        collective_merge.collective_fold = real
+    for ext in (".mums", ".athresh", ".lengths"):
+        with open(coll + ext, "rb") as a, open(host + ext, "rb") as b, \
+                open(m1["single"] + ext, "rb") as c:
+            ga, gb, gc = a.read(), b.read(), c.read()
+        if rc or rc_h or ga != gb or gb != gc or not ga or any(lm.values()):
+            raise AssertionError(f"c: {ext} of merge --collective != the "
+                                 f"host merge's (rc {rc}, {rc_h}; {lm})")
+    cands = [merge_mod.parse_candidate(p) for p in parts]
+    dense = collective_merge._dense_arrays(cands, seen[0]["n_anchor"])
+    dev0 = torch.device(seen[0]["devices"][0])
+    placed = [torch.from_numpy(a).to(dev0) for a in dense]
+    entry = {"rc": rc, "s": s, "host_merge_s": host_s, "fold": seen[0],
+             "fold_ms": _event_ms(torch, lambda: collective_merge._fold_all(
+                 *placed), 20, dev0),
+             "partitions": len(parts)}
+    log(f"[cards] c: merge --collective {s:.3f} s (host merge {host_s:.3f} "
+        f"s; phase 11 0.092 s at n_anchor 10^6, phase 14 row d's merge "
+        f"2.074 s), fold {seen[0]['s']:.4f} s over {seen[0]['devices']} at "
+        f"n_anchor {seen[0]['n_anchor']}, {entry['fold_ms']:.3f} ms of it "
+        "on the first card; files equal")
+    out["c"] = entry
+
+
+def _windows_bytes(rb, opts, num_docs, m, ps, pe, pL, w_sa, w_da):
+    """A partition's compacted windows (m rows) through the writer's
+    emitter: the .mums bytes."""
+    import numpy as np
+    from mumemto_tpu_torch import engine
+    results = engine.MatchResults(opts=opts, num_docs=num_docs)
+    doc_offsets, doc_lens = engine._doc_metadata(rb, opts)
+    valid = (ps[:m, None] + np.arange(num_docs)) < pe[:m, None]
+    engine._emit_mums(results, ps[:m], pe[:m], pL[:m], w_sa[:m],
+                      w_da[:m].astype(np.int32), valid, opts, doc_offsets,
+                      doc_lens, num_docs)
+    return results.output_bytes()
+
+
+def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2):
+    """Row p: parallel/partition's match program on make_mesh(4) (a (2, 2)
+    ('part', 'seq') mesh on four cards) over nparts partitions of num_docs
+    bench documents of doc_mbp Mbp; M from the direct backend's counts on
+    one card; each partition's windows through the writer must equal the
+    direct backend's bytes; which card each partition ran on."""
+    import numpy as np
+    from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.parallel import partition
+    rbs = [_bench_rb(num_docs * doc_mbp, seed=seed, n_docs=num_docs)
+           for seed in range(nparts)]
+    n = engine.pad_size(max(int(rb.text.size) for rb in rbs))
+    texts = np.zeros((nparts, n), np.uint8)
+    doc_ends = np.zeros((nparts, num_docs), np.int32)
+    for p, rb in enumerate(rbs):
+        texts[p, :rb.text.size] = rb.text
+        doc_ends[p] = rb.doc_ends
+    opts = options.normalize(num_docs, quiet=True)
+    wants = [engine.find_matches(rb, opts, backend="direct", device="cuda")
+             for rb in rbs]
+    # the program keeps a MUM's window once a strand; the emitter keeps one
+    M = _pow2_at_least(2 * max(w.num_matches for w in wants), 1 << 10)
+    mesh = partition.make_mesh(4)
+    ran_on = []
+    real = partition._partition_scan_matches
+
+    def scan(text, *a):
+        ran_on.append(str(text.device))
+        return real(text, *a)
+    fn = partition.compile_partitioned_matches(mesh, num_docs, M=M)
+    _reset_peaks(torch)
+    partition._partition_scan_matches = scan
+    try:
+        got, s, launches = _counted(torch, lambda: fn(texts, doc_ends))
+    finally:
+        partition._partition_scan_matches = real
+    peaks = _card_peaks(torch)
+    counts, ps, pe, pL, w_sa, w_da = (x.cpu().numpy() for x in got)
+    for p, (rb, want) in enumerate(zip(rbs, wants)):
+        if _windows_bytes(rb, opts, num_docs, int(counts[p]), ps[p], pe[p],
+                          pL[p], w_sa[p], w_da[p]) != want.output_bytes() \
+                or not want.num_matches:
+            raise AssertionError(f"p: partition {p}'s bytes != the direct "
+                                 "backend's")
+    if any(launches.values()):
+        raise AssertionError(f"p: the partition program launched {launches}")
+    entry = {"mesh_shape": list(mesh.shape),
+             "mesh_devices": [str(d) for d in mesh.devices],
+             "partitions": nparts, "docs": num_docs, "n": n, "M": M,
+             "ran_on": ran_on, "counts": counts.tolist(), "s": s,
+             "peak_alloc_bytes": peaks}
+    log(f"[cards] p: {json.dumps(entry)}")
+    out["p"] = entry
+
+
+def _cards_shard_dict(torch, out, mbps):
+    """The 8-shard scan spread over every visible card (two a card on
+    four), the dictionary index on one device and sharded, in the order
+    off, on, on, off, at each of `mbps` (MUM 8 and 32 Mbp: nr = 2^24 and
+    2^26): wall, stages and each card's peak, over the run and within
+    each stage (dict_index above all); bytes equal to a single-device
+    run's."""
+    from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.parallel import mesh, seqpfp
+    expect = {8: EXPECT_8MBP, 32: EXPECT_32MBP}
     opts = options.normalize(N_DOCS, quiet=True)
     nshards = 8
     devices = mesh.seq_devices(nshards, "cuda")
-
-    def peaks():
-        return [torch.cuda.max_memory_allocated(i) for i in range(ncards)]
-
-    for mbp, expect in ((8, EXPECT_8MBP), (32, EXPECT_32MBP)):
+    runs = []
+    for mbp in mbps:
         rb = _bench_rb(mbp)
         engine.find_matches(rb, opts, device="cuda")        # warm-up
-        for i in range(ncards):
-            torch.cuda.reset_peak_memory_stats(i)
+        _reset_peaks(torch)
         t0 = time.perf_counter()
         single = engine.find_matches(rb, opts, device="cuda")
         _sync_all(torch)
         entry = {"mbp": mbp, "shards": 1, "shard_dict": False,
                  "wall_s": time.perf_counter() - t0,
-                 "peak_alloc_bytes": peaks()}
-        report["runs"].append(entry)
+                 "peak_alloc_bytes": _card_peaks(torch)}
+        runs.append(entry)
         log(f"[cards] {json.dumps(entry)}")
         want = single.output_bytes()
-        if single.num_matches != expect:
+        if single.num_matches != expect.get(mbp, single.num_matches):
             raise AssertionError(f"{mbp} Mbp: {single.num_matches} matches")
         del single
         for shard_dict in (False, True):                    # warm-up
             seqpfp.find_matches_seq_sharded(rb, opts, devices, M=8192,
                                             shard_dict=shard_dict)
         for shard_dict in (False, True, True, False):
-            for i in range(ncards):
-                torch.cuda.reset_peak_memory_stats(i)
-            _sync_all(torch)
+            _reset_peaks(torch)
             timer = _AllCardsTimer(torch)
             t0 = time.perf_counter()
             res = seqpfp.find_matches_seq_sharded(
@@ -2595,15 +3188,89 @@ def cards_main() -> int:
                      "wall_s": time.perf_counter() - t0,
                      "stages_s": timer.stages,
                      "stage_peak_alloc_bytes": timer.stage_peaks,
-                     "peak_alloc_bytes": [
-                         max(p) for p in zip(*timer.stage_peaks.values())],
+                     "peak_alloc_bytes": timer.peaks(),
                      "matches": res.num_matches}
-            report["runs"].append(entry)
+            runs.append(entry)
             log(f"[cards] {json.dumps(entry)}")
             if res.output_bytes() != want:
                 raise AssertionError(f"{mbp} Mbp, shard_dict={shard_dict}: "
                                      "bytes != the single-device run's")
             del res
+    out["shard_dict"] = runs
+
+
+def _cards_baseline(out, m2):
+    """m2's merged .mums against one native/baseline_cpu run on the union
+    text (the bytes _run_cpu_baseline writes): match count, sum of
+    lengths and occurrence hash must agree."""
+    t0 = time.perf_counter()
+    base = _cpu_baseline(m2["rb"].text, m2["rb"].seq_lengths, m2["opts"])
+    wall = time.perf_counter() - t0
+    want = {k: base[k] for k in ("matches", "sum_len", "occ_hash")}
+    out["m2"]["baseline"] = {**base, "wall_s": wall}
+    log(f"[cards] m2: baseline_cpu on the union {want} in {wall:.1f} s; "
+        f"merged {m2['got']}")
+    if m2["got"] != want or not want["matches"]:
+        raise AssertionError(f"m2: merged {m2['got']} != baseline_cpu {want}")
+
+
+def phase_cards(torch, report, doc_mbp=5.0, card_docs=CARD_DOCS,
+                ranks=RANKS, bench_mbp=96, shards=(4, 8), part_doc_mbp=4.0,
+                shard_dict_mbp=(8, 32), kr_mbp=KR_MBP, dcn_device=None):
+    """The rows of `--cards` (cards_main), in order: k, m1, m2, s, c, p,
+    the shard_dict runs, and m2's baseline last. Collections:
+    _synth_collection(doc_mbp * N, N, seed=0) for N in card_docs (C20 and
+    C40); rank r of m1 and m2 on cuda:{r % cards} (dcn_device: every rank
+    there instead). Every comparison raises on a difference."""
+    from mumemto_tpu_torch import engine
+    t0 = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    cards = [engine.resolve(f"cuda:{i}") for i in range(ncards)]
+    devices = [dcn_device or f"cuda:{r % ncards}" for r in range(ranks)]
+    n20, n40 = card_docs
+    c20 = _synth_collection(n20 * doc_mbp, n20, seed=0)
+    c40 = _synth_collection(n40 * doc_mbp, n40, seed=0)
+    out = report.setdefault("rows", {})
+    with tempfile.TemporaryDirectory() as work:
+        _cards_kr(torch, out, cards, c40, ranks, kr_mbp)
+        m1 = _cards_m1(torch, out, work, c20, doc_mbp, devices)
+        m2 = _cards_m2(torch, out, work, c40, doc_mbp, devices,
+                       m1["d_len_per_doc"])
+        del c20, c40
+        torch.cuda.empty_cache()
+        _cards_sharded(torch, out, [
+            (f"C{n20}", m1["rb"], n20 * doc_mbp, m1["union_bytes"]),
+            (f"bench {bench_mbp:g} Mbp", _bench_rb(bench_mbp), bench_mbp,
+             None)], shards, work)
+        _cards_collective(torch, out, m1)
+        torch.cuda.empty_cache()
+        _cards_partition(torch, out, part_doc_mbp)
+        _cards_shard_dict(torch, out, shard_dict_mbp)
+        _cards_baseline(out, m2)
+    report["cards_s"] = time.perf_counter() - t0
+    log(f"[cards] the rows took {report['cards_s']:.1f} s")
+
+
+def cards_main() -> int:
+    """`python3 chip_smoke.py --cards`: phase_cards on every visible card.
+    Writes chiprun_out/chip_smoke_cards.json."""
+    if not os.path.isdir(os.path.join(ROOT, "mumemto_tpu_torch")):
+        print("chip_smoke: mumemto_tpu_torch not found beside this script; "
+              "run it from the repository root", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    ncards = torch.cuda.device_count()
+    report = {"card": _smi(), "cards": ncards}
+    phase_build(report)
+    phase_cards(torch, report)
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
+    if foreign:
+        raise AssertionError(f"chip_smoke imported {foreign}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cards.json"),
               "w") as f:

@@ -137,20 +137,24 @@ PROGRESS_STAGE = {
 }
 
 
-def _phase_logger(dev: torch.device):
-    """The default phase hook. MUMEMTO_TPU_PROFILE=1 prints each stage's
-    wall time to stderr, and an active progress bar advances; each stage is
-    then synchronized with the device first, so the times are the
-    device's. With neither it is the no-op, which adds no syncs."""
+def _phase_logger(devices):
+    """The default phase hook of a scan on `devices` (a device, or a mesh:
+    a list of devices). MUMEMTO_TPU_PROFILE=1 prints each stage's wall time
+    to stderr, and an active progress bar advances; each stage then waits
+    for every card of `devices` first, so the times are the devices'. With
+    neither it is the no-op, which adds no syncs."""
     prof = bool(os.environ.get("MUMEMTO_TPU_PROFILE"))
     bar = progress.active()
     if not prof and bar is None:
         return ops_pfp._noop_phase
+    if isinstance(devices, torch.device):
+        devices = [devices]
+    cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
     state = {"t": time.time()}
 
     def log(name):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for card in cards:
+            torch.cuda.synchronize(card)
         now = time.time()
         if prof:
             print(f"[pfp_scan] {name}: {now - state['t']:.2f}s",

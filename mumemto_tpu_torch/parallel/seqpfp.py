@@ -144,7 +144,7 @@ def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
         raise ValueError("seq-sharded scan requires a bounded interval "
                          "size cap (finite f/F or MUM mode)")
     if phase is None:
-        phase = engine._phase_logger(devices[0])
+        phase = engine._phase_logger(devices)
     if parse_prefix:
         pfp = ops_pfp.pfp_from_parse_files(parse_prefix, devices[0], w=pfp_w)
         phase("read_parse")

@@ -73,10 +73,12 @@ def _write_collection(rng, tmp_path, n=5):
     return paths
 
 
-def _run_pair(tmp_path, paths, prefix, collective, device="cpu", mode="ok"):
-    """Both workers' (return code, output); one retry on a fresh port
-    when the first attempt of an "ok" pair fails (a loaded host can miss
-    gloo's connect window; a real fault shows again)."""
+def _run_ranks(tmp_path, paths, prefix, collective, devices=("cpu", "cpu"),
+               mode="ok"):
+    """One worker per entry of `devices`, rank r on devices[r]: each
+    worker's (return code, output); one retry on a fresh port when the
+    first attempt of an "ok" group fails (a loaded host can miss gloo's
+    connect window; a real fault shows again)."""
     filelist = tmp_path / "files.txt"
     filelist.write_text("\n".join(paths))
     worker = tmp_path / "worker.py"
@@ -88,10 +90,11 @@ def _run_pair(tmp_path, paths, prefix, collective, device="cpu", mode="ok"):
     def attempt():
         port = _free_port()
         procs = [subprocess.Popen(
-            [sys.executable, str(worker), str(rank), "2", str(port), prefix,
-             str(filelist), ROOT, "1" if collective else "0", device, mode],
+            [sys.executable, str(worker), str(rank), str(len(devices)),
+             str(port), prefix, str(filelist), ROOT,
+             "1" if collective else "0", device, mode],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env) for rank in (0, 1)]
+            env=env) for rank, device in enumerate(devices)]
         outs = []
         try:
             for p in procs:
@@ -116,7 +119,7 @@ def _check_pair_equals_single(rng, tmp_path, collective, device):
     single = str(tmp_path / "single")
     mumemtom.run_partitioned(parts, single, anchor=True, device=device)
     pair = str(tmp_path / "dcn")
-    got = _run_pair(tmp_path, paths, pair, collective, device)
+    got = _run_ranks(tmp_path, paths, pair, collective, (device, device))
     for rank, (rc, out) in enumerate(got):
         assert rc == 0, out[-2000:]
         # placement is by index mod process count
@@ -145,7 +148,7 @@ def test_dcn_failed_merge_fails_both_ranks(rng, tmp_path):
     error, rank 1 learns of it from the gathered outcome, and both exit
     non-zero inside the time limit."""
     paths = _write_collection(rng, tmp_path)
-    got = _run_pair(tmp_path, paths, str(tmp_path / "dcn"), False,
+    got = _run_ranks(tmp_path, paths, str(tmp_path / "dcn"), False,
                     mode="fail")
     (rc0, out0), (rc1, out1) = got
     assert rc0 not in (0, None) and rc1 not in (0, None), (out0[-1500:],
@@ -161,7 +164,7 @@ def test_dcn_failed_scan_fails_both_ranks(rng, tmp_path):
     the barrier after the scans and merges nothing, and both exit non-zero
     inside the time limit."""
     paths = _write_collection(rng, tmp_path)
-    got = _run_pair(tmp_path, paths, str(tmp_path / "dcn"), False,
+    got = _run_ranks(tmp_path, paths, str(tmp_path / "dcn"), False,
                     mode="scanfail")
     (rc0, out0), (rc1, out1) = got
     assert rc0 not in (0, None) and rc1 not in (0, None), (out0[-1500:],

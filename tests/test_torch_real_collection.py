@@ -136,6 +136,9 @@ class _NoCard:
     def max_memory_allocated(self, *a):
         return 0
 
+    def device_count(self):
+        return 1
+
 
 class _TorchOnCpu:
     """torch, with _NoCard for torch.cuda."""
