@@ -107,6 +107,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
 `python3 chip_smoke.py --cards` is another, shorter program for a machine
 with several cards: the 8-shard scan spread over them with the dictionary
 index on one device and sharded, wall and peak per card (cards_main).
+`python3 chip_smoke.py --cards ROW ...` runs the named rows instead
+(phase_wide), on 215 genomes of 4.41 Mbp at 0.01% SNPs (1.9 G rows, a
+2^31-row bucket): wr the sharded scan at 1/8 of that size on one card,
+wbase native/baseline_cpu on the whole collection, w the KR kernel on its
+2^31-byte ext (kw: that alone) and the sharded scan over every card,
+then the CLI with --seq-shards, f1 the default CLI on one card (the
+union refused, then the partition fallback), w2 MumemtoM as dcn ranks,
+m3 113 genomes of 5 Mbp at 0.1% SNPs as dcn ranks.
 Every path of phases 5-8 and 10-14 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
@@ -310,29 +318,57 @@ def _run_cpu_baseline(text, seq_lengths, opts, mbp):
     return mbp / r["t_total"], r["matches"]
 
 
-def _cpu_baseline(text, seq_lengths, opts) -> dict:
-    """The JSON record of one run of native/baseline_cpu, the single-core
-    C++ SA-IS + Kasai + LCP-interval scan, on the same input (matches,
-    sum_len, occ_hash, t_total, ...); the binary is built first when
-    missing or stale."""
-    _build_cpu_baseline()
-    with tempfile.TemporaryDirectory() as td:
-        tf = os.path.join(td, "text.bin")
-        lf = os.path.join(td, "lens.txt")
+class _Baseline:
+    """One run of native/baseline_cpu, the single-core C++ SA-IS + Kasai +
+    LCP-interval scan, on the same input, in a process of its own: started
+    here (the binary built first when missing or stale), read by
+    result(), killed by close() if still running (a run on 1.9 G
+    characters takes minutes, so the caller works meanwhile)."""
+
+    def __init__(self, text, seq_lengths, opts):
+        _build_cpu_baseline()
+        self.dir = tempfile.TemporaryDirectory()
+        tf = os.path.join(self.dir.name, "text.bin")
+        lf = os.path.join(self.dir.name, "lens.txt")
         with open(tf, "wb") as f:
-            f.write(text.tobytes())
+            text.tofile(f)
         with open(lf, "w") as f:
             f.write("".join(f"{n}\n" for n in seq_lengths))
-        out = subprocess.run(
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
             [os.path.join(ROOT, "native", "baseline_cpu"), tf, lf,
              str(opts.min_match_len), str(opts.num_distinct),
              str(opts.max_doc_freq), str(opts.max_total_freq),
              str(int(opts.no_max_freq)), str(int(opts.use_revcomp)), "1"],
-            capture_output=True, text=True, timeout=3600)
-    if out.returncode != 0:
-        raise AssertionError(f"native/baseline_cpu failed: "
-                             f"{out.stderr[-2000:]}")
-    return json.loads(out.stdout)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self, timeout: float = 3600) -> dict:
+        """Its JSON record (matches, sum_len, occ_hash, t_total, ...) and
+        wall_s, the seconds from its start to its end."""
+        try:
+            out, err = self.proc.communicate(timeout=timeout)
+        finally:
+            self.close()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"native/baseline_cpu failed: {err[-2000:]}")
+        return {**json.loads(out), "wall_s": time.perf_counter() - self.t0}
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        self.dir.cleanup()
+
+
+def _cpu_baseline(text, seq_lengths, opts) -> dict:
+    """The JSON record of one run of native/baseline_cpu (_Baseline) on
+    the same input, waited for."""
+    return _Baseline(text, seq_lengths, opts).result()
+
+
+def _triple(rec) -> dict:
+    """Match count, sum of lengths and occurrence hash of a record."""
+    return {k: rec[k] for k in ("matches", "sum_len", "occ_hash")}
 
 
 def _rb_of(docs):
@@ -1986,6 +2022,7 @@ class _PrepSpy:
             h = self.real(pfp, doc_ends)
             self.sizes.append({
                 "d_len": h["total_real"] + 1, "nd": h["nd"], "nr": h["nr"],
+                "rows": h["total_rows"],
                 "lvl_cap": h["lvl_cap"],
                 "lvl_static": h["lvl_static"], "phrases": h["npz"],
                 "parse_entries": h["m"],
@@ -2864,29 +2901,31 @@ def _cards_m1(torch, out, work, docs, doc_mbp, devices):
             "d_len_per_doc": out["m1"]["d_len_per_doc"]}
 
 
-def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc):
-    """Row m2, the collection one card refuses: the union on one card must
-    be refused by the range-min guard; then dcn with one rank per entry of
-    `devices` on as many anchor partitions, host fold. The merged .mums's
-    count, sum of lengths and occurrence hash are held against
-    native/baseline_cpu on the union later (_cards_baseline). The largest
-    collection this takes is reasoned from the partitions' dictionaries,
-    which grow by per_doc (m1's measure) a document."""
+def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc,
+              key="m2", rb=None):
+    """Row m2 (or `key`), the collection one card refuses: the union on
+    one card (rb, or made from docs) must be refused by the range-min
+    guard; then dcn with one rank per entry of `devices` on as many anchor
+    partitions, host fold. The merged .mums's count, sum of lengths and
+    occurrence hash are held against native/baseline_cpu on the union
+    later (_cards_baseline). The largest collection this takes is reasoned
+    from the partitions' dictionaries, which grow by per_doc (m1's
+    measure) a document."""
     from mumemto_tpu_torch import options
     from mumemto_tpu_torch.parallel import mumemtom
     n, nparts = len(docs), len(devices)
-    d = os.path.join(work, "m2")
+    d = os.path.join(work, key)
     os.makedirs(d)
     fastas = _write_fastas(docs, d)
-    rb = _rb_of(docs)
+    rb = rb or _rb_of(docs)
     opts = options.normalize(n, quiet=True)
-    refused = _refused(torch, "m2", f"C{n} union on one card", rb, opts)
+    refused = _refused(torch, key, f"C{n} union on one card", rb, opts)
     if not refused["refused"]:
-        raise AssertionError(f"m2: one card took the C{n} union")
+        raise AssertionError(f"{key}: one card took the C{n} union")
     torch.cuda.empty_cache()
-    worker, filelist, env = _dcn_setup(d, fastas, "m2")
+    worker, filelist, env = _dcn_setup(d, fastas, key)
     prefix = os.path.join(d, "dcn")
-    wall, ranks, _ = _dcn_run("m2 host fold", worker, prefix, filelist,
+    wall, ranks, _ = _dcn_run(f"{key} host fold", worker, prefix, filelist,
                               False, env, devices, None, nparts)
     split = mumemtom.auto_partition(fastas, nparts, anchor=True)
     got = _occ_stats(prefix + ".mums", n, _order_of(fastas, split))
@@ -2900,7 +2939,7 @@ def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc):
              "merged": got, "d_len_per_doc": per_doc,
              "partition_docs_max": docs_max,
              "collection_docs_max": nparts * (docs_max - 1) + 1}
-    log(f"[cards] m2: {nparts} ranks {wall:.3f} s; partitions (docs, nd, "
+    log(f"[cards] {key}: {nparts} ranks {wall:.3f} s; partitions (docs, nd, "
         f"levels, nr, peak GiB, s): "
         f"{[(p['docs'], p['nd'], p['dict_levels'], p['nr'], round(p['peak_alloc_bytes'] / 2**30, 2), round(p['s'], 3)) for p in parts]}; "
         f"ranks' s to initialize's end "
@@ -2909,7 +2948,7 @@ def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc):
         f"dictionary {per_doc:.0f} a document, so a partition takes "
         f"{docs_max} documents under nd = 2^26 and {nparts} cards "
         f"{entry['collection_docs_max']} genomes of {doc_mbp:g} Mbp")
-    out["m2"] = entry
+    out[key] = entry
     return {"rb": rb, "opts": opts, "got": got}
 
 
@@ -3206,7 +3245,7 @@ def _cards_baseline(out, m2):
     t0 = time.perf_counter()
     base = _cpu_baseline(m2["rb"].text, m2["rb"].seq_lengths, m2["opts"])
     wall = time.perf_counter() - t0
-    want = {k: base[k] for k in ("matches", "sum_len", "occ_hash")}
+    want = _triple(base)
     out["m2"]["baseline"] = {**base, "wall_s": wall}
     log(f"[cards] m2: baseline_cpu on the union {want} in {wall:.1f} s; "
         f"merged {m2['got']}")
@@ -3251,9 +3290,458 @@ def phase_cards(torch, report, doc_mbp=5.0, card_docs=CARD_DOCS,
     log(f"[cards] the rows took {report['cards_s']:.1f} s")
 
 
-def cards_main() -> int:
-    """`python3 chip_smoke.py --cards`: phase_cards on every visible card.
-    Writes chiprun_out/chip_smoke_cards.json."""
+# the named rows of `--cards`: the sharded scan at the row space it was
+# built for. 215 isolates of one bacterial species (the size of M.
+# tuberculosis H37Rv, 4.41 Mbp) at lineage-level divergence (0.01% SNPs):
+# 948.15 Mbp, ~1.9 G rows with revcomp, a 2^31-row bucket, under the
+# range-min guard, and within native/baseline_cpu's int32 text
+WIDE_DOCS = 215
+WIDE_DOC_MBP = 4.41
+WIDE_SNP = 1e-4
+WIDE_SHARDS = 16         # B = 2^27 rows a shard at nr = 2^31
+WIDE_M = 1 << 14         # the per-shard window capacity the library gets
+REHEARSAL_MBP = 118.5    # row wr: 1/8 of the collection, nr 2^28
+W2_PARTS = 8             # row w2: anchor partitions over the dcn ranks
+M3_DOCS = 113            # row m3: genomes of 5 Mbp at 0.1% SNPs
+M3_PER_DOC = 1928119     # the dictionary's growth a genome at 0.1% (m1)
+# native/baseline_cpu on row w's collection: count, sum of lengths and
+# occurrence hash from `--cards wbase` (599.4 s on the host of a machine
+# with an NVIDIA H100 80GB HBM3, PERF.md); a live wbase in the same call
+# replaces it
+W_BASELINE = {"matches": 61110, "sum_len": 4029012,
+              "occ_hash": 15288323120970386319}
+CARD_ROWS = ("wr", "wbase", "kw", "w", "f1", "w2", "m3")
+
+
+def _free_gib() -> str:
+    """The host's memory as `free -g` prints it."""
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                         timeout=60)
+    return out.stdout.strip()
+
+
+def _wide_docs(total_mbp: float, n_docs: int = WIDE_DOCS):
+    return _synth_collection(total_mbp, n_docs, seed=0, snp_rate=WIDE_SNP)
+
+
+def _empty_caches(torch):
+    """Garbage collected, then every card's cached blocks handed back."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _wide_kr(torch, text, cards, w: int = 10, mod: int = 100) -> dict:
+    """The KR kernel on the collection's whole ext, once on cards[0], its
+    mask and count against break_mask_plain in 8 chunks on the other cards
+    (cards[0] when alone): the chunk at ext offset o > 0 carries the w
+    bytes before it, so from its local position w on its plain mask is the
+    kernel's from o on, with n_real - o + w as the end of its real text.
+    CUDA-event times: the kernel's on the whole ext beside its byte bound,
+    the plain version's summed over the chunks."""
+    from mumemto_tpu_torch.kernels import kr_mask
+    n_real = int(text.size)
+    ext = torch.from_numpy(_ext_of(text, w)).to(cards[0])
+    ne = int(ext.numel())
+    before = kr_mask.launches
+    m_k, c_k = kr_mask.break_mask(ext, n_real, w, mod)
+    launched = kr_mask.launches - before
+    others = cards[1:] or cards[:1]
+    chunk = ne // 8
+    mism = total = 0
+    plain_ms = 0.0
+    for i, o in enumerate(range(0, ne, chunk)):
+        dev = others[i % len(others)]
+        lo = max(o - w, 0)
+        piece = ext[lo:o + chunk].to(dev)
+        m_p, _ = kr_mask.break_mask_plain(piece, n_real - lo, w, mod)
+        got = m_k[o:o + chunk].to(dev)
+        mism += int((m_p[o - lo:] != got).sum())
+        total += int(m_p[o - lo:].sum())
+        del m_p, got
+        plain_ms += _event_ms(torch, lambda: kr_mask.break_mask_plain(
+            piece, n_real - lo, w, mod), 1, dev)
+        del piece
+    rec = {"card": str(cards[0]), "ne": ne, "n_real": n_real,
+           "breaks": int(c_k), "launches": launched,
+           "mismatches": mism + abs(total - int(c_k)),
+           "chunks": ne // chunk,
+           "chunk_cards": sorted({str(d) for d in others}),
+           "ms": min(_event_ms(torch, lambda: kr_mask.break_mask(
+               ext, n_real, w, mod), 20, cards[0]) for _ in range(2)),
+           "plain_ms_chunked": plain_ms,
+           "bound_ms": 2 * ne / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del m_k, ext
+    log(f"[wide] KR: {json.dumps(rec)}")
+    if rec["mismatches"] or launched != 1:
+        raise AssertionError(f"KR kernel on the whole ext: {rec}")
+    return rec
+
+
+def _wide_scan(torch, label, rb, opts, nshards, M, cards):
+    """find_matches_seq_sharded with shard r on cards[r % len(cards)]:
+    wall, stages (emit split from assemble), each card's peak over the
+    run and within each stage, sizes, the per-shard counts, KR launches.
+    Out of device memory, the shard count doubles; on a window capacity
+    refusal the scan reruns with the M it names. Returns (record, the
+    MatchResults)."""
+    import re
+    from mumemto_tpu_torch import cli, engine
+    from mumemto_tpu_torch.parallel import seqpfp
+    from mumemto_tpu_torch.parallel.partition import WindowCapacityError
+    tries = []
+    while True:
+        devs = [cards[r % len(cards)] for r in range(nshards)]
+        _reset_peaks(torch)
+        timer = _AllCardsTimer(torch)
+        split = _Split(torch, {"emit": (engine, "_emit_mums")}, timer)
+        err = None
+        with _PrepSpy() as spy, _CapacitySpy() as cap, split:
+            try:
+                res, s, lc = _counted(torch, lambda: (
+                    seqpfp.find_matches_seq_sharded(rb, opts, devs, M=M,
+                                                    phase=timer)))
+            except WindowCapacityError as e:
+                err = str(e)
+            except Exception as e:
+                if not cli._is_device_oom(e):
+                    raise
+                err = f"device OOM: {str(e)[:300]}"
+        if err is None:
+            break
+        tries.append({"shards": nshards, "M": M, "error": err,
+                      "peak_alloc_bytes": _card_peaks(torch)})
+        log(f"[wide] {label}: {nshards} shards, M {M}: {err[:300]}")
+        _empty_caches(torch)
+        need = re.search(r"rerun with M >= (\d+)", err)
+        if need:
+            M = _pow2_at_least(int(need[1]), M)
+        elif nshards >= 64:
+            raise AssertionError(f"{label}: out of memory at {nshards} "
+                                 "shards")
+        else:
+            nshards *= 2
+    rec = {"label": label, "shards": nshards, "M": M,
+           "devices": [str(d) for d in devs], "wall_s": s,
+           "stages_s": {**timer.stages, "emit (in assemble)": split.s["emit"]},
+           "peak_alloc_bytes": timer.peaks(),
+           "stage_peak_alloc_bytes": timer.stage_peaks,
+           "shard_matches": cap.counts[0],
+           "cli_M_4096_refuses": max(cap.counts[0]) > 4096,
+           "launches": lc, "matches": res.num_matches, "retries": tries,
+           **spy.sizes[0], **_flat_sizes(spy)}
+    log(f"[wide] {label}: {nshards} shards on {len(set(devs))} card(s), "
+        f"{s:.3f} s, peaks {_gib(rec['peak_alloc_bytes'])}, "
+        f"{res.num_matches} matches, rows {rec['rows']} (nr {rec['nr']}), "
+        f"nd {rec['nd']} x {rec['dict_levels']} levels "
+        f"({rec['dict_flat_share']:.1%} of 2^31); "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["stages_s"].items()))
+    if lc != {"kr_break_mask": 1, "add_one": 0}:
+        raise AssertionError(f"{label}: kernel launches {lc}")
+    return rec, res
+
+
+def _written_triple(torch, rec, res, rb, prefix):
+    """Writes res (timed into rec["write_s"]) and returns the .mums
+    file's count, sum of lengths and occurrence hash."""
+    from mumemto_tpu_torch import engine
+    t0 = time.perf_counter()
+    engine.write_outputs(res, rb, prefix)
+    rec["write_s"] = time.perf_counter() - t0
+    rec["triple"] = _occ_stats(prefix + ".mums", rb.num_docs)
+    return rec["triple"]
+
+
+def _wide_rehearsal(torch, out, work, cards, mbp, n_docs, nshards, M):
+    """Row wr: the sharded scan of row w on one card at 1/8 of its size
+    (n_docs documents, mbp Mbp), every shard on cards[0]: bytes equal to
+    the single-device engine's in this call, count, sum and hash equal to
+    a live baseline_cpu run, the KR check of row w on this ext."""
+    from mumemto_tpu_torch import engine, options
+    docs = _wide_docs(mbp, n_docs)
+    rb = _rb_of(docs)
+    opts = options.normalize(rb.num_docs, quiet=True)
+    base = _Baseline(rb.text, rb.seq_lengths, opts)
+    try:
+        _reset_peaks(torch)
+        timer = _AllCardsTimer(torch)
+        single, s1, l1 = _counted(torch, lambda: engine.find_matches(
+            rb, opts, device=cards[0], phase=timer))
+        one = {"wall_s": s1, "stages_s": timer.stages,
+               "peak_alloc_bytes": timer.peaks(), "launches": l1,
+               "matches": single.num_matches}
+        want = single.output_bytes()
+        del single
+        _empty_caches(torch)
+        rec, res = _wide_scan(torch, f"wr {mbp:g} Mbp", rb, opts, nshards,
+                              M, cards[:1])
+        rec["bytes_equal_single"] = res.output_bytes() == want
+        rec["single"] = one
+        got = _written_triple(torch, rec, res, rb,
+                              os.path.join(work, "wr"))
+        del res
+        _empty_caches(torch)
+        rec["kr"] = _wide_kr(torch, rb.text, cards[:1])
+        rec["baseline"] = base.result()
+    finally:
+        base.close()
+    rec["mbp"] = mbp
+    out["wr"] = rec
+    log(f"[wide] wr: one card {s1:.3f} s ({one['matches']} matches, peak "
+        f"{_gib(one['peak_alloc_bytes'])}); triple {got}, baseline_cpu "
+        f"{_triple(rec['baseline'])} in {rec['baseline']['wall_s']:.1f} s")
+    if not rec["bytes_equal_single"] or got != _triple(rec["baseline"]) \
+            or not got["matches"]:
+        raise AssertionError(f"wr: bytes equal {rec['bytes_equal_single']}, "
+                             f"{got} != baseline_cpu {rec['baseline']}")
+
+
+def _wide_row(torch, out, work, rb, fastas, cards, nshards, M):
+    """Row w: the KR kernel on the whole ext (_wide_kr), then
+    find_matches_seq_sharded over every card (_wide_scan), its .mums
+    written; then the CLI with --seq-shards on the FASTAs, whose .mums
+    must equal the library's, or which must refuse with the per-shard
+    M = 4096 in the JAX package's words (which one is recorded). Returns
+    the library's triple for the baseline check."""
+    import re
+    from mumemto_tpu_torch import cli, options
+    from mumemto_tpu_torch.parallel.partition import WindowCapacityError
+    opts = options.normalize(rb.num_docs, quiet=True)
+    kr = _wide_kr(torch, rb.text, cards)
+    _empty_caches(torch)
+    rec, res = _wide_scan(torch, "w", rb, opts, nshards, M, cards)
+    rec["kr"] = kr
+    lib = os.path.join(work, "w_lib")
+    got = _written_triple(torch, rec, res, rb, lib)
+    del res
+    _empty_caches(torch)
+    prefix = os.path.join(work, "w_cli")
+    argv = fastas + ["-o", prefix, "--seq-shards", str(rec["shards"])]
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+        refused = None
+    except WindowCapacityError as e:
+        rc, refused = None, str(e)
+    _sync_all(torch)
+    route = {"argv_tail": argv[-4:], "s": time.perf_counter() - t0,
+             "rc": rc, "refused": refused}
+    if refused is None:
+        with open(prefix + ".mums", "rb") as a, open(lib + ".mums", "rb") as b:
+            route["mums_equal_library"] = a.read() == b.read()
+        if rc != 0 or not route["mums_equal_library"]:
+            raise AssertionError(f"w: the CLI route {route}")
+    elif not re.fullmatch(r"seq-sharded scan: \d+ matches exceed the window "
+                          r"capacity M=4096; rerun with M >= \d+", refused):
+        raise AssertionError(f"w: the CLI refused with {refused!r}")
+    rec["cli"] = route
+    log(f"[wide] w: CLI --seq-shards {rec['shards']}: {json.dumps(route)}")
+    out["w"] = rec
+    return got
+
+
+class _Attempts:
+    """Every union or partition scan (engine.find_matches) and every
+    MumemtoM round (mumemtom.run_partitioned_files) while active: what
+    ran, seconds, cards[0]'s peak and how it ended."""
+
+    def __init__(self, torch, card):
+        from mumemto_tpu_torch import engine
+        from mumemto_tpu_torch.parallel import mumemtom
+        self.torch, self.card, self.log = torch, card, []
+        self.targets = {"scan": (engine, "find_matches"),
+                        "partitions": (mumemtom, "run_partitioned_files")}
+
+    def __enter__(self):
+        self.real = {n: getattr(m, a) for n, (m, a) in self.targets.items()}
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self._wrap(name, self.real[name]))
+        return self
+
+    def _wrap(self, name, real):
+        torch = self.torch
+
+        def run(*a, **kw):
+            rb_or_files = a[0]
+            what = (f"{kw.get('num_partitions', 2)} partitions"
+                    if name == "partitions"
+                    else f"scan of {rb_or_files.num_docs} docs")
+            _sync_all(torch)
+            torch.cuda.reset_peak_memory_stats(self.card)
+            t0 = time.perf_counter()
+            end = "ok"
+            try:
+                return real(*a, **kw)
+            except Exception as e:
+                end = f"{type(e).__name__}: {str(e)[:300]}"
+                raise
+            finally:
+                _sync_all(torch)
+                self.log.append({
+                    "what": what, "s": time.perf_counter() - t0,
+                    "peak_alloc_bytes":
+                        torch.cuda.max_memory_allocated(self.card),
+                    "end": end})
+        return run
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.real[name])
+
+
+def _cli_one_card(torch, out, work, fastas, card):
+    """Row f1: the default CLI (no --seq-shards) on the FASTAs on one
+    card: the union scan, then the partition fallback. Every attempt
+    recorded; either the fallback's merged .mums (its triple, in document
+    order) or a clean non-zero exit. Returns the triple, or None."""
+    from mumemto_tpu_torch import cli
+    from mumemto_tpu_torch.parallel import mumemtom
+    prefix = os.path.join(work, "f1")
+    with _PrepSpy() as spy, _Attempts(torch, card) as att:
+        rc, s, lc = _counted(torch, lambda: cli.main(fastas + ["-o", prefix]))
+    rec = {"rc": rc, "wall_s": s, "launches": lc, "attempts": att.log,
+           "sizes": spy.sizes}
+    rounds = [a for a in att.log if a["what"].endswith("partitions")]
+    got = None
+    if rc == 0 and rounds:
+        nparts = int(rounds[-1]["what"].split()[0])
+        order = _order_of(fastas, mumemtom.auto_partition(
+            fastas, nparts, anchor=True))
+        got = rec["triple"] = _occ_stats(prefix + ".mums", len(fastas),
+                                         order)
+    log(f"[wide] f1: exit {rc} in {s:.1f} s; attempts "
+        + "; ".join(f"{a['what']} {a['s']:.1f} s peak "
+                    f"{a['peak_alloc_bytes'] / 2**30:.2f} GiB: "
+                    f"{a['end'][:160]}" for a in att.log))
+    out["f1"] = rec
+    if rc == 0 and got is None:
+        raise AssertionError("f1: the union scan on one card ran to its end")
+    if lc["kr_break_mask"] != len(att.log) - len(rounds) or lc["add_one"]:
+        raise AssertionError(f"f1: launches {lc} for {att.log}")
+    return got
+
+
+def _wide_dcn(torch, out, work, fastas, devices, nparts):
+    """Row w2: MumemtoM of nparts anchor partitions as one dcn rank per
+    entry of `devices` (partitions r, r + P, ... on rank r), host fold;
+    returns the merged .mums's triple in document order."""
+    from mumemto_tpu_torch.parallel import mumemtom
+    worker, filelist, env = _dcn_setup(work, fastas, "w2")
+    prefix = os.path.join(work, "w2")
+    wall, ranks, _ = _dcn_run("w2", worker, prefix, filelist, False, env,
+                              devices, None, nparts)
+    split = mumemtom.auto_partition(fastas, nparts, anchor=True)
+    got = _occ_stats(prefix + ".mums", len(fastas), _order_of(fastas, split))
+    out["w2"] = {"wall_s": wall, "ranks": ranks, "devices": devices,
+                 "partition_docs": [len(p) for p in split], "triple": got}
+    log(f"[wide] w2: {len(devices)} ranks, {nparts} partitions, {wall:.3f} "
+        f"s; partitions (docs, nd, nr, peak GiB, s): "
+        f"{[(p['docs'], p['nd'], p['nr'], round(p['peak_alloc_bytes'] / 2**30, 2), round(p['s'], 3)) for r in ranks for p in r['partitions']]}; "
+        f"merged {got}")
+    return got
+
+
+def phase_wide(torch, report, rows, doc_mbp=WIDE_DOC_MBP, n_docs=WIDE_DOCS,
+               rehearsal_mbp=REHEARSAL_MBP, nshards=WIDE_SHARDS, M=WIDE_M,
+               baseline=W_BASELINE, w2_parts=W2_PARTS, ranks=RANKS,
+               m3_docs=M3_DOCS, m3_doc_mbp=5.0, dcn_device=None):
+    """The named rows of `--cards` (cards_main), in this order whatever
+    the order given: wr, then on row w's collection (n_docs genomes of
+    doc_mbp Mbp at 0.01% SNPs, written as FASTAs) kw (row w's KR check
+    alone), w, f1 and w2, whose triples (count, sum of lengths,
+    occurrence hash) must equal native/baseline_cpu's: the live run of
+    wbase, started before the rows and read after them (also when a row
+    fails, so its triple is printed), or `baseline`; then m3 (m3_docs
+    genomes at 0.1% SNPs as dcn ranks, with the one-card refusal, as row
+    m2), whose live baseline starts before every other row. Rank r of w2
+    and m3 on cuda:{r % cards} (dcn_device: all there)."""
+    from mumemto_tpu_torch import engine, options
+    rows = set(rows)
+    if {"w", "f1", "w2"} & rows and baseline is None and "wbase" not in rows:
+        raise AssertionError(f"rows {sorted(rows)} need baseline_cpu's "
+                             "triple: add wbase, or set W_BASELINE from a "
+                             "wbase run")
+    t0 = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    cards = [engine.resolve(f"cuda:{i}") for i in range(ncards)]
+    devices = [dcn_device or f"cuda:{r % ncards}" for r in range(ranks)]
+    out = report.setdefault("rows", {})
+    report["host_memory_before"] = _free_gib()
+    log(f"[wide] host memory before the rows:\n{report['host_memory_before']}")
+    triples = {}
+    with tempfile.TemporaryDirectory() as work, \
+            contextlib.ExitStack() as running:
+        if "m3" in rows:
+            m3_coll = _synth_collection(m3_docs * m3_doc_mbp, m3_docs, seed=0)
+            m3_rb = _rb_of(m3_coll)
+            m3_base = _Baseline(m3_rb.text, m3_rb.seq_lengths,
+                                options.normalize(m3_docs, quiet=True))
+            running.callback(m3_base.close)
+        if "wr" in rows:
+            _wide_rehearsal(torch, out, work, cards, rehearsal_mbp, n_docs,
+                            nshards, M)
+            _empty_caches(torch)
+        base = None
+        if {"w", "wbase", "kw", "f1", "w2"} & rows:
+            docs = _wide_docs(n_docs * doc_mbp, n_docs)
+            rb = _rb_of(docs)
+            fastas = _write_fastas(docs, work)
+            del docs
+            report["collection"] = {
+                "docs": n_docs, "mbp": n_docs * doc_mbp,
+                "text_chars": int(rb.text.size), "snp_rate": WIDE_SNP}
+            log(f"[wide] collection: {json.dumps(report['collection'])}")
+            if "wbase" in rows:
+                base = _Baseline(rb.text, rb.seq_lengths,
+                                 options.normalize(n_docs, quiet=True))
+                running.callback(base.close)
+        try:
+            if "kw" in rows:
+                out["kw"] = _wide_kr(torch, rb.text, cards)
+                _empty_caches(torch)
+            if "w" in rows:
+                triples["w"] = _wide_row(torch, out, work, rb, fastas, cards,
+                                         nshards, M)
+                _empty_caches(torch)
+            if "f1" in rows:
+                triples["f1"] = _cli_one_card(torch, out, work, fastas,
+                                              cards[0])
+                _empty_caches(torch)
+            if "w2" in rows:
+                triples["w2"] = _wide_dcn(torch, out, work, fastas, devices,
+                                          w2_parts)
+        finally:
+            if base is not None:
+                rec = out["wbase"] = base.result()
+                log(f"[wide] wbase: baseline_cpu {_triple(rec)}, its own "
+                    f"t_total {rec.get('t_total')} s, {rec['wall_s']:.1f} s "
+                    "from its start to its end")
+                baseline = _triple(rec)
+        if triples:
+            for key, got in triples.items():
+                if got is not None and got != baseline:
+                    raise AssertionError(f"{key}: {got} != baseline_cpu "
+                                         f"{baseline}")
+            log(f"[wide] {sorted(k for k, v in triples.items() if v)} equal "
+                f"baseline_cpu's {baseline}")
+        if "m3" in rows:
+            m3 = _cards_m2(torch, out, work, m3_coll, m3_doc_mbp, devices,
+                           M3_PER_DOC, key="m3", rb=m3_rb)
+            rec = out["m3"]["baseline"] = m3_base.result()
+            log(f"[wide] m3: merged {m3['got']}, baseline_cpu "
+                f"{_triple(rec)}, its own t_total {rec.get('t_total')} s")
+            if m3["got"] != _triple(rec) or not rec["matches"]:
+                raise AssertionError(f"m3: merged {m3['got']} != "
+                                     f"baseline_cpu {_triple(rec)}")
+    report["rows_s"] = time.perf_counter() - t0
+    log(f"[wide] the rows took {report['rows_s']:.1f} s")
+
+
+def cards_main(rows=None) -> int:
+    """`python3 chip_smoke.py --cards [ROW ...]`: phase_cards on every
+    visible card, or with row names (CARD_ROWS) phase_wide's rows. Writes
+    its report as chip_smoke_cards.json, or chip_smoke_cards_<rows>.json,
+    in the output directory beside chip_smoke.json."""
     if not os.path.isdir(os.path.join(ROOT, "mumemto_tpu_torch")):
         print("chip_smoke: mumemto_tpu_torch not found beside this script; "
               "run it from the repository root", file=sys.stderr)
@@ -3266,15 +3754,21 @@ def cards_main() -> int:
     ncards = torch.cuda.device_count()
     report = {"card": _smi(), "cards": ncards}
     phase_build(report)
-    phase_cards(torch, report)
+    try:
+        if rows:
+            phase_wide(torch, report, rows)
+        else:
+            phase_cards(torch, report)
+    finally:
+        # the rows that ran are kept also when a later one fails
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        name = "_".join(["chip_smoke_cards", *(rows or ())]) + ".json"
+        with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
+            json.dump(report, f, indent=1)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
     if foreign:
         raise AssertionError(f"chip_smoke imported {foreign}")
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cards.json"),
-              "w") as f:
-        json.dump(report, f, indent=1)
     log(report["card"])
     log(json.dumps({"ok": True, "cards": ncards}))
     return 0
@@ -3357,7 +3851,15 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = cards_main() if sys.argv[1:] == ["--cards"] else main()
+        if sys.argv[1:2] == ["--cards"]:
+            rows = sys.argv[2:]
+            unknown = sorted(set(rows) - set(CARD_ROWS))
+            if unknown:
+                raise SystemExit(f"chip_smoke: no --cards rows {unknown}; "
+                                 f"the rows are {', '.join(CARD_ROWS)}")
+            rc = cards_main(rows)
+        else:
+            rc = main()
     except Exception:  # any failed phase: report it and exit non-zero
         traceback.print_exc()
         rc = 1

@@ -9,8 +9,11 @@ in the reference) plus --device, and writes PREFIX.lengths and PREFIX.mums
 and stops; -p resumes from them, -a replays .sa/.lcp/.bwt files, -g runs
 the direct backend. The subcommands run through analysis/dispatch (`merge`
 with --device, analysis/merge). A CUDA
-out-of-memory error on a strict multi-MUM run over >= 3 files is retried
-as MumemtoM partitions on the same device. --seq-shards N shards the scan
+out-of-memory error on a strict multi-MUM run over >= 3 files, or a
+union one device's scan refuses by size (ops/pfp.ScanSizeError: a row
+space past 2^31, a range-min table past its int32 index), is retried as
+MumemtoM partitions on the same device; any other run so refused exits
+1 with the refusal. --seq-shards N shards the scan
 of one collection (the FASTA build or a -p resume) over N shards placed
 round-robin on the visible cards (parallel/seqpfp.py, parallel/mesh.py);
 on one card, or with --device cpu, every shard runs on that device.
@@ -147,6 +150,16 @@ def _is_device_oom(e: Exception) -> bool:
             or "CUDA out of memory" in str(e))
 
 
+def _too_big(e: Exception) -> str | None:
+    """What a smaller scan avoids, in words ("device OOM", or a size
+    refusal's message), else None. Words, not the error: its traceback
+    would keep the failed scan's tensors alive."""
+    from mumemto_tpu_torch.ops.pfp import ScanSizeError
+    if _is_device_oom(e):
+        return "device OOM"
+    return str(e) if isinstance(e, ScanSizeError) else None
+
+
 def _fallback_eligible(opts, files) -> bool:
     """A run the partition fallback reproduces exactly: strict multi-MUMs
     over >= 3 input files, no merge metadata, no .bumbl."""
@@ -155,15 +168,16 @@ def _fallback_eligible(opts, files) -> bool:
                 and files and len(files) >= 3)
 
 
-def _oom_partition_fallback(args, files, device) -> int:
-    """Device OOM during the union scan: rerun as MumemtoM partitions +
-    anchor merge on the same device (README.md:124-142 in the reference),
-    doubling the partition count while partitions still run out of
-    memory. merge(partitions) == run-on-union is the tested invariant."""
+def _oom_partition_fallback(args, files, device, why) -> int:
+    """Device OOM (or a size refusal; `why` says which) during the union
+    scan: rerun as MumemtoM partitions + anchor merge on the same device
+    (README.md:124-142 in the reference), doubling the partition count
+    while partitions still run out of memory or are refused.
+    merge(partitions) == run-on-union is the tested invariant."""
     from mumemto_tpu_torch.parallel import mumemtom
-    nparts = 2
+    failed, nparts = "the union scan", 2
     while nparts <= max(2, len(files) - 1):
-        print(f"[build_main] device OOM on the union scan — retrying as "
+        print(f"[build_main] {why} on {failed} — retrying as "
               f"{nparts} MumemtoM partitions + anchor merge", file=sys.stderr)
         # the failed scan's tensors are garbage now; hand its cached
         # blocks back, or the caching allocator keeps holding them
@@ -175,12 +189,18 @@ def _oom_partition_fallback(args, files, device) -> int:
                 anchor=True, min_match_len=args.min_match_len,
                 use_revcomp=args.use_rcomp, device=device)
         except Exception as e:
-            if not _is_device_oom(e):
+            why = _too_big(e)
+            if why is None:
                 raise
+            failed = f"{nparts} partitions"
             nparts *= 2
             continue
         print("[build_main] partitioned fallback succeeded", file=sys.stderr)
         return 0
+    if why != "device OOM":
+        print(f"Error: {why} (even at maximum partitioning)",
+              file=sys.stderr)
+        return 1
     print("Error: the device ran out of memory even at maximum "
           "partitioning.", file=sys.stderr)
     return 137
@@ -284,13 +304,14 @@ def build_main(argv) -> int:
                 arrays_out_prefix=(args.output_prefix if args.arrays_out
                                    else None))
     except Exception as e:
-        if not (_is_device_oom(e) and _fallback_eligible(opts, files)):
+        why = _too_big(e)
+        if why is None or not _fallback_eligible(opts, files):
             raise
         results = None
     if results is None:
         # outside the handler: the traceback, and with it the failed
         # scan's tensors, is released first
-        return _oom_partition_fallback(args, files, device)
+        return _oom_partition_fallback(args, files, device, why)
     print(f"[build_main] match scan finished on {device} "
           f"({time.time() - t0:.2f}s)", file=sys.stderr)
     engine.write_outputs(results, rb, args.output_prefix)
@@ -315,9 +336,10 @@ def main(argv=None) -> int:
         from mumemto_tpu_torch.analysis import dispatch
         return dispatch.run(argv[0], argv[1:])
     from mumemto_tpu_torch import options
+    from mumemto_tpu_torch.ops.pfp import ScanSizeError
     try:
         return build_main(argv)
-    except (options.InputError, FileNotFoundError) as e:
+    except (options.InputError, FileNotFoundError, ScanSizeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     except MemoryError:

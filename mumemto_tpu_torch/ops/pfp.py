@@ -42,6 +42,19 @@ TERM = 0         # EndOfDict / parse terminator
 CANON_ALPHA = (0, 1, 2, 36, 65, 67, 71, 84)
 
 
+# one device's row arrays are int32: a scan on one device takes row buckets
+# below 2^31, the block scan (parallel/widepfp.py) any
+ROW_LIMIT = 2**31
+
+
+class ScanSizeError(ValueError):
+    """A collection past what a scan takes: a row space past one device's
+    int32 row arrays, a text past the int32 phrase coordinates, or a
+    range-min table past its int32 flat index (_rmq_query). The CLI
+    answers it as it answers a device out-of-memory error: the partition
+    fallback where that reproduces the run, else a clean error."""
+
+
 def bucket(n: int, lo: int = 1024) -> int:
     """0.75/1.0-of-a-power-of-two size bucket (the JAX package's shapes)."""
     n = max(n, lo)
@@ -131,8 +144,8 @@ def _rmq_query(table: list, lo: torch.Tensor, hi: torch.Tensor):
     n = table[0].shape[0]
     L1 = len(table)
     if n * L1 >= 2**31:
-        raise ValueError(f"range-min table of {L1} levels x {n} entries "
-                         "would overflow int32 flat indexing")
+        raise ScanSizeError(f"range-min table of {L1} levels x {n} "
+                            "entries would overflow int32 flat indexing")
     length = torch.clamp(hi - lo + 1, min=1)
     # exact floor(log2): frexp of an int32 held in float64 is exact
     lvl = (torch.frexp(length.to(torch.float64)).exponent - 1).to(I32)
@@ -210,8 +223,16 @@ def _alphabet(bytes_np: np.ndarray) -> tuple:
 def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
               mod: int = 100) -> PFPData:
     """Parse the collection text: upload ext, KR breaks on the device,
-    phrase records and their lexicographic ranks on the host."""
+    phrase records and their lexicographic ranks on the host. Phrase
+    coordinates are int32, so ext ([2] + text + [2]*w) must stay below
+    2^31 bytes: a longer text raises ScanSizeError before anything is
+    copied."""
     n_text = int(text_np.size)
+    if n_text + w + 1 >= 2**31:
+        raise ScanSizeError(
+            f"a text of {n_text} characters does not fit the int32 phrase "
+            f"coordinates (at most 2^31 - {w + 2} with w = {w}); partition "
+            "the collection (MumemtoM)")
     ext_np = np.concatenate([
         np.full(1, DOLLAR_PFP, np.uint8), text_np,
         np.full(w, DOLLAR_PFP, np.uint8)])
@@ -356,7 +377,9 @@ def _pad_phrase_arrays(pfp: PFPData):
 def _host_prep(pfp: PFPData, doc_ends: np.ndarray):
     """Host-side preparation for a scan: bucket-padded phrase arrays and
     parse arrays (uploaded to ext's device), the expansion row layout and
-    the size parameters. Row and text coordinates are int32."""
+    the size parameters. Row and text coordinates are int32 below 2^31
+    rows; past it cumcnt and doc_ends are int64 (only the block scan,
+    parallel/widepfp.py, takes such a row space: pfp_scan refuses it)."""
     dev = pfp.ext.device
     w = pfp.w
     phrase_st, phrase_ln, d_starts_pad, npz, total_real, nd = \
@@ -381,7 +404,8 @@ def _host_prep(pfp: PFPData, doc_ends: np.ndarray):
     cnt = (pfp.phrase_ln[pfp.parse] - w).astype(np.int64)
     n_rows = int(cnt.sum())
     nr = bucket(n_rows)
-    cumcnt = np.zeros(mp + 1, np.int32)
+    wide = n_rows >= 2**31
+    cumcnt = np.zeros(mp + 1, np.int64 if wide else np.int32)
     cumcnt[1:m + 1] = np.cumsum(cnt)
     cumcnt[m + 1:] = n_rows
 
@@ -390,9 +414,10 @@ def _host_prep(pfp: PFPData, doc_ends: np.ndarray):
     return {
         "phrase_st": up(phrase_st), "phrase_ln": up(phrase_ln),
         "d_starts": up(d_starts_pad), "npz": npz, "total_real": total_real,
-        "parse": up(pprime), "cumC": up(cumC, I64), "cumcnt": up(cumcnt),
+        "parse": up(pprime), "cumC": up(cumC, I64),
+        "cumcnt": up(cumcnt, I64 if wide else I32),
         "m": m, "total_rows": n_rows, "n_text": pfp.n_text,
-        "doc_ends": up(doc_ends.astype(np.int64)),
+        "doc_ends": up(doc_ends.astype(np.int64), I64 if wide else I32),
         "ne": int(pfp.ext.shape[0]), "nd": nd, "nr": nr, "mp": mp, "w": w,
         "lvl_cap": lvl_cap, "lvl_static": lvl_static, "seed_thr": seed_thr,
         "lcp_thr": lcp_thr,
@@ -557,7 +582,8 @@ def _expand_and_analyze(parse, d_starts, cumcnt, m: int, total_rows: int,
 
 def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
                      probe_words: int = 2, phase=None,
-                     dict_devices: list | None = None) -> dict:
+                     dict_devices: list | None = None,
+                     max_nr: int | None = None) -> dict:
     """The dict and parse side of a scan on pfp.ext's device, shared by
     pfp_scan and the sharded scan (parallel/seqpfp.py): _host_prep's arrays
     and sizes plus the tables d, grp_of_pos, grp_cross, isaP and slt_table.
@@ -568,9 +594,16 @@ def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
     build the dict index distributed over it (parallel/sharddict.py); the
     tables are the same (the tie-order argument is in that module).
     probe_words belongs to the replicated index alone: the sharded one
-    takes the rank descent and has no probe."""
+    takes the rank descent and has no probe. max_nr: refuse a row bucket
+    of max_nr or more with ScanSizeError, before the dict index."""
     phase = phase or _noop_phase
     h = _host_prep(pfp, doc_ends)
+    if max_nr is not None and h["nr"] >= max_nr:
+        raise ScanSizeError(
+            f"row spaces past 2^31 need the block (wide) scan: "
+            f"{h['total_rows']} rows (bucket {h['nr']}) do not fit one "
+            "device's int32 row arrays; shard the scan (--seq-shards N) "
+            "or partition the collection (MumemtoM)")
     if dict_devices is not None:
         from mumemto_tpu_torch.parallel import sharddict
         fn = sharddict.compile_sharded_dict_index(
@@ -602,7 +635,7 @@ def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
     (res, counts, nr). `phase(name)` is called after each stage."""
     phase = phase or _noop_phase
     h = pfp_scan_prepare(pfp, doc_ends, probe_words=probe_words,
-                         phase=phase)
+                         phase=phase, max_nr=ROW_LIMIT)
     res, counts = _expand_and_analyze(
         h["parse"], h["d_starts"], h["cumcnt"], h["m"], h["total_rows"],
         h["n_text"], h["isaP"], h["grp_of_pos"], h["d"], h["slt_table"],

@@ -67,9 +67,14 @@ def _bitonic_block_sort(blocks: list, devices: list,
     and [partner, mine] on the other orders tied rows differently,
     doubling some rows and dropping others. So the lower shard id's block
     always comes first. Two partners on one device sort the pair once and
-    take a half each."""
+    take a half each.
+
+    The sort takes the list over: each entry is replaced as its block is
+    sorted, so no unsorted block outlives its sort, also where the caller
+    still holds the list; the list is returned."""
     nshards = len(blocks)
-    blocks = [ops_pfp._sort_rows(ops, num_keys) for ops in blocks]
+    for i in range(nshards):
+        blocks[i] = ops_pfp._sort_rows(blocks[i], num_keys)
     if nshards == 1:
         return blocks
     B = blocks[0][0].shape[0]
@@ -104,12 +109,17 @@ def _bitonic_block_sort(blocks: list, devices: list,
                            for a, b in zip(lo_ops, hi_ops)]
                 hi_on_lo = tuple(t[0] for t in swapped)
                 lo_on_hi = tuple(t[1] for t in swapped)
+                # each pair's copies go before the next pair's are made
+                del swapped
                 mrg = merged(lo_ops, hi_on_lo)
+                del lo_ops, hi_on_lo
                 blocks[lo] = tuple((a[:B] if asc else a[B:]).clone()
                                    for a in mrg)
                 mrg = merged(lo_on_hi, hi_ops)
+                del lo_on_hi, hi_ops
                 blocks[hi] = tuple((a[B:] if asc else a[:B]).clone()
                                    for a in mrg)
+                del mrg
     return blocks
 
 

@@ -36,8 +36,10 @@ Coordinates: global row ids and text positions are int64 values, indices
 into a block are int32. The JAX module carries uint32 values with modular
 arithmetic to pass 2^31 rows under a 32-bit index space; here int64 values
 cost one wider sort operand (ssa) and need no modular reasoning, so the
-in-block tests read 0 <= start - base < B. One card's memory ends the row
-space long before 2^31 rows (see PERF.md for the measured peaks).
+in-block tests read 0 <= start - base < B. The single-device scan
+(ops/pfp.pfp_scan) refuses row buckets of 2^31 or more, so this is the
+one route past them; several cards hold what one card cannot (PERF.md
+has the measured peaks).
 
 The operands are the seven unpacked ones of ops/pfp._expand_operands; the
 JAX module's packed (suffix length, BWT char, cross LCP) operand and its
