@@ -108,13 +108,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
 with several cards: the 8-shard scan spread over them with the dictionary
 index on one device and sharded, wall and peak per card (cards_main).
 `python3 chip_smoke.py --cards ROW ...` runs the named rows instead
-(phase_wide), on 215 genomes of 4.41 Mbp at 0.01% SNPs (1.9 G rows, a
-2^31-row bucket): wr the sharded scan at 1/8 of that size on one card,
-wbase native/baseline_cpu on the whole collection, w the KR kernel on its
-2^31-byte ext (kw: that alone) and the sharded scan over every card,
-then the CLI with --seq-shards, f1 the default CLI on one card (the
-union refused, then the partition fallback), w2 MumemtoM as dcn ranks,
-m3 113 genomes of 5 Mbp at 0.1% SNPs as dcn ranks.
+(phase_wide): s a probe of host-bound work through the per-card threads,
+then the 8-shard scan of the bench collection at 8 and 32 Mbp over every
+card and on cuda:0 alone, each traced (every card's busy time and the
+time cards were busy together); p the partition program on
+make_mesh(4), the card of each partition; then, on 215 genomes of 4.41
+Mbp at 0.01% SNPs (1.9 G rows, a 2^31-row bucket): wr the sharded scan
+at 1/8 of that size on one card, wbase native/baseline_cpu on the whole
+collection, w the KR kernel on its 2^31-byte ext (kw: that alone) and the
+sharded scan over every card, a trace of its shard stages, then the CLI
+with --seq-shards, f1 the default CLI on one card (the union refused,
+then the partition fallback), w2 MumemtoM as dcn ranks, m3 113 genomes
+of 5 Mbp at 0.1% SNPs as dcn ranks.
 Every path of phases 5-8 and 10-14 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
@@ -179,8 +184,7 @@ class StageTimer:
 
 
 class SumTimer(StageTimer):
-    """A StageTimer that adds up the stages called more than once (the
-    sharded scan's analyze and compact, once per shard)."""
+    """A StageTimer that adds up the stages called more than once."""
 
     def __call__(self, name):
         before = self.stages.get(name, 0.0)
@@ -2709,8 +2713,8 @@ def _occ_stats(path, num_docs, order=None) -> dict:
 def _busy_overlap(spans) -> dict:
     """Device activity [(card, start_us, end_us)] summed up: each card's
     busy us (the union of its spans), the us in which at least one and at
-    least two cards were busy, and the span from first start to last
-    end."""
+    least two cards were busy, the us in which at least k cards were busy
+    for every k, and the span from first start to last end."""
     by_card = {}
     for card, a, b in spans:
         by_card.setdefault(card, []).append((a, b))
@@ -2725,31 +2729,55 @@ def _busy_overlap(spans) -> dict:
         merged[card] = runs
     edges = sorted((t, step) for runs in merged.values() for a, b in runs
                    for t, step in ((a, 1), (b, -1)))
-    any_us = two_us = 0.0
+    at_least = [0.0] * (len(merged) + 1)
     depth, prev = 0, None
     for t, step in edges:
         if prev is not None:
-            any_us += (t - prev) * (depth >= 1)
-            two_us += (t - prev) * (depth >= 2)
+            for k in range(1, depth + 1):
+                at_least[k] += t - prev
         depth, prev = depth + step, t
     return {"busy_us": {str(c): sum(b - a for a, b in runs)
                         for c, runs in sorted(merged.items())},
-            "any_busy_us": any_us, "overlap_us": two_us,
+            "any_busy_us": at_least[1] if merged else 0.0,
+            "overlap_us": at_least[2] if len(merged) > 1 else 0.0,
+            "cards_busy_us": {str(k): at_least[k]
+                              for k in range(1, len(merged) + 1)},
             "span_us": (max(b for _c, _a, b in spans)
                         - min(a for _c, a, _b in spans)) if spans else 0.0}
 
 
-def _trace_cards(torch, fn, tmp):
-    """(fn(), device spans): fn under torch.profiler (CPU and, with a card,
-    CUDA activity); the spans [(card, start_us, end_us)] of the kernels,
-    copies and memsets of its chrome trace."""
+def _trace_cards(torch, fn, tmp, stages=None):
+    """(fn(phase), device spans): fn under torch.profiler (the cards'
+    activity, the CPU's where there is no card), over the whole call, or
+    with stages = (a, b) from the phase hook's call for stage a to its
+    call for stage b (the stages after a up to b); the spans [(card,
+    start_us, end_us)] of the kernels, copies and memsets of its chrome
+    trace."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        out = fn()
+    prof = profile(activities=[ProfilerActivity.CUDA]
+                   if torch.cuda.is_available() else [ProfilerActivity.CPU])
+    on = []
+
+    def switch(start):
         _sync_all(torch)
+        if start and not on:
+            prof.start()
+            on.append(True)
+        elif on and not start:
+            prof.stop()
+            on.clear()
+
+    def phase(name):
+        if name in stages:
+            switch(name == stages[0])
+    try:
+        if stages is None:
+            switch(True)
+        out = fn(phase if stages else None)
+        switch(False)
+    finally:
+        if on:
+            prof.stop()
     path = os.path.join(tmp, "trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -2974,19 +3002,69 @@ class _CapacitySpy:
         self.mod._check_capacity = self.real
 
 
-def _cards_sharded(torch, out, inputs, shards, tmp):
+def _runner_probe(torch, cards, launches=4096) -> list:
+    """Host-bound work through mesh.run_per_device, the kind a sharded
+    scan's stages are at 8 Mbp: on each card `launches` in-place adds to
+    a 4096-element tensor, with a readback (a host sync) after every 32 or
+    after the last, each card's share on its own thread, beside the same
+    work launched from the caller's thread card after card; then the same
+    adds on host tensors, one thread each, beside one thread. Walls after
+    every card's sync, best of 3."""
+    from mumemto_tpu_torch.parallel import mesh
+    keys = list(range(len(cards)))
+    recs = []
+    for where, devs, sync_every in (("cards", cards, 32),
+                                    ("cards", cards, launches),
+                                    ("host", keys, launches)):
+        xs = [torch.zeros(4096, device=d if where == "cards" else "cpu")
+              for d in devs]
+
+        def work(i):
+            x = xs[i]
+            for k in range(launches):
+                x.add_(1)
+                if k % sync_every == sync_every - 1:
+                    float(x[0])
+
+        def timed(fn):
+            walls = []
+            for _ in range(3):
+                _sync_all(torch)
+                t0 = time.perf_counter()
+                fn()
+                _sync_all(torch)
+                walls.append(time.perf_counter() - t0)
+            return min(walls)
+        recs.append({
+            "tensors": where, "threads": len(devs),
+            "launches_per_thread": launches, "sync_every": sync_every,
+            "threads_s": timed(lambda: mesh.run_per_device(work, keys,
+                                                           devs)),
+            "one_thread_s": timed(lambda: [work(i) for i in keys])})
+        log(f"[cards] s runner probe: {json.dumps(recs[-1])}")
+    return recs
+
+
+def _cards_sharded(torch, out, inputs, shards, tmp, one_card=False,
+                   trace_all=False):
     """Row s: the sharded scan over mesh.seq_devices(n, "cuda") for each n
     of `shards` (the first twice) on each input (label, rb, mbp, the
     single-card bytes or None), M a power of two >= 2^16 above the
     single-card count (which bounds every shard's); bytes equal to a
     single-card run in this call; wall, stages, each card's peak, the
-    largest shard's count against the CLI's M = 4096. Then one
-    torch.profiler trace of the first n on the first input: each card's
-    busy time and the time two or more cards were busy at once."""
+    largest shard's count against the CLI's M = 4096; with one_card, each
+    n also with every shard on cuda:0 (one thread, shard after shard).
+    Then torch.profiler traces of the first n, of the whole call and of
+    its shard stages (operands to analyze), on the first input (on every
+    input with trace_all): each card's busy time and the time two or more
+    cards were busy at once. With one_card, _runner_probe on every card
+    first."""
     from mumemto_tpu_torch import engine, options
     from mumemto_tpu_torch.parallel import mesh, seqpfp
-    rows = []
+    rows, traces = [], []
     trace = None
+    probe = _runner_probe(torch, list(dict.fromkeys(mesh.spread(
+        max(torch.cuda.device_count(), 1), "cuda")))) if one_card else None
     for label, rb, mbp, want in inputs:
         opts = options.normalize(rb.num_docs, quiet=True)
         _reset_peaks(torch)
@@ -3010,8 +3088,11 @@ def _cards_sharded(torch, out, inputs, shards, tmp):
         def sharded(devs, timer):
             return seqpfp.find_matches_seq_sharded(rb, opts, devs, M=M,
                                                    phase=timer)
-        for n in (shards[0], *shards):
-            devs = mesh.seq_devices(n, "cuda")
+        runs = [(n, "cuda") for n in (shards[0], *shards)]
+        if one_card:
+            runs += [(n, "cuda:0") for n in shards]
+        for n, where in runs:
+            devs = mesh.seq_devices(n, where)
             _reset_peaks(torch)
             timer = _AllCardsTimer(torch)
             with _CapacitySpy() as cap:
@@ -3038,21 +3119,26 @@ def _cards_sharded(torch, out, inputs, shards, tmp):
             if not same or lc != {"kr_break_mask": 1, "add_one": 0}:
                 raise AssertionError(f"s {label}, {n} shards: bytes equal "
                                      f"{same}, launches {lc}")
-        if trace is None:
+        if trace is None or trace_all:
             n = shards[0]
             devs = mesh.seq_devices(n, "cuda")
-            t0 = time.perf_counter()
-            res, spans = _trace_cards(torch, lambda: sharded(devs, None),
-                                      tmp)
-            trace = {"input": label, "shards": n,
-                     "wall_s": time.perf_counter() - t0,
-                     "bytes_equal": res.output_bytes() == want,
-                     "device_spans": len(spans), **_busy_overlap(spans)}
-            del res
-            log(f"[cards] s trace: {json.dumps(trace)}")
-            if not trace["bytes_equal"]:
-                raise AssertionError("s: the traced run's bytes differ")
-    out["s"] = {"runs": rows, "trace": trace}
+            for stages in (None, ("parse_side", "analyze")):
+                t0 = time.perf_counter()
+                res, spans = _trace_cards(
+                    torch, lambda phase: sharded(devs, phase), tmp, stages)
+                rec = {"input": label, "shards": n,
+                       "window": "shard stages" if stages else "whole call",
+                       "wall_s": time.perf_counter() - t0,
+                       "bytes_equal": res.output_bytes() == want,
+                       "device_spans": len(spans), **_busy_overlap(spans)}
+                del res
+                traces.append(rec)
+                log(f"[cards] s trace: {json.dumps(rec)}")
+                if not rec["bytes_equal"]:
+                    raise AssertionError("s: the traced run's bytes differ")
+            trace = traces[0]
+    out["s"] = {"runs": rows, "trace": trace, "traces": traces,
+                "runner_probe": probe}
 
 
 def _cards_collective(torch, out, m1):
@@ -3125,12 +3211,16 @@ def _windows_bytes(rb, opts, num_docs, m, ps, pe, pL, w_sa, w_da):
     return results.output_bytes()
 
 
-def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2):
+def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2,
+                     runs=1):
     """Row p: parallel/partition's match program on make_mesh(4) (a (2, 2)
     ('part', 'seq') mesh on four cards) over nparts partitions of num_docs
-    bench documents of doc_mbp Mbp; M from the direct backend's counts on
-    one card; each partition's windows through the writer must equal the
-    direct backend's bytes; which card each partition ran on."""
+    bench documents of doc_mbp Mbp, `runs` times; M from the direct
+    backend's counts on one card; each partition's windows through the
+    writer must equal the direct backend's bytes; which card each
+    partition ran on (mesh.part_device), the cards and the host threads
+    the scans saw, every card's peak."""
+    import threading
     import numpy as np
     from mumemto_tpu_torch import engine, options
     from mumemto_tpu_torch.parallel import partition
@@ -3148,20 +3238,36 @@ def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2):
     # the program keeps a MUM's window once a strand; the emitter keeps one
     M = _pow2_at_least(2 * max(w.num_matches for w in wants), 1 << 10)
     mesh = partition.make_mesh(4)
-    ran_on = []
+    ran_on = [str(mesh.part_device(p)) for p in range(nparts)]
+    seen = []
     real = partition._partition_scan_matches
 
     def scan(text, *a):
-        ran_on.append(str(text.device))
+        seen.append((str(text.device), threading.current_thread()))
         return real(text, *a)
     fn = partition.compile_partitioned_matches(mesh, num_docs, M=M)
-    _reset_peaks(torch)
+    walls, peaks = [], []
     partition._partition_scan_matches = scan
     try:
-        got, s, launches = _counted(torch, lambda: fn(texts, doc_ends))
+        for _ in range(runs):
+            seen.clear()
+            _reset_peaks(torch)
+            got, s, launches = _counted(torch, lambda: fn(texts, doc_ends))
+            walls.append(s)
+            peaks.append(_card_peaks(torch))
+            if any(launches.values()):
+                raise AssertionError(f"p: the partition program launched "
+                                     f"{launches}")
     finally:
         partition._partition_scan_matches = real
-    peaks = _card_peaks(torch)
+    threads = {}
+    for dev, ident in seen:
+        threads.setdefault(ident, set()).add(dev)
+    if sorted(d for d, _ in seen) != sorted(ran_on) or \
+            len(threads) != len(set(ran_on)) or \
+            any(len(v) != 1 for v in threads.values()):
+        raise AssertionError(f"p: partitions ran on {seen}, placed on "
+                             f"{ran_on}")
     counts, ps, pe, pL, w_sa, w_da = (x.cpu().numpy() for x in got)
     for p, (rb, want) in enumerate(zip(rbs, wants)):
         if _windows_bytes(rb, opts, num_docs, int(counts[p]), ps[p], pe[p],
@@ -3169,13 +3275,12 @@ def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2):
                 or not want.num_matches:
             raise AssertionError(f"p: partition {p}'s bytes != the direct "
                                  "backend's")
-    if any(launches.values()):
-        raise AssertionError(f"p: the partition program launched {launches}")
     entry = {"mesh_shape": list(mesh.shape),
              "mesh_devices": [str(d) for d in mesh.devices],
              "partitions": nparts, "docs": num_docs, "n": n, "M": M,
-             "ran_on": ran_on, "counts": counts.tolist(), "s": s,
-             "peak_alloc_bytes": peaks}
+             "ran_on": ran_on, "threads": len(threads),
+             "counts": counts.tolist(), "s": walls[0], "walls_s": walls,
+             "peak_alloc_bytes": peaks[0], "run_peaks": peaks}
     log(f"[cards] p: {json.dumps(entry)}")
     out["p"] = entry
 
@@ -3310,7 +3415,11 @@ M3_PER_DOC = 1928119     # the dictionary's growth a genome at 0.1% (m1)
 # replaces it
 W_BASELINE = {"matches": 61110, "sum_len": 4029012,
               "occ_hash": 15288323120970386319}
-CARD_ROWS = ("wr", "wbase", "kw", "w", "f1", "w2", "m3")
+CARD_ROWS = ("s", "p", "wr", "wbase", "kw", "w", "f1", "w2", "m3")
+S_MBP = (8, 32)      # row s: the bench collection, 8 shards over the cards
+S_SHARDS = (8,)
+P_DOC_MBP = 4.0      # row p: 4 partitions of 2 bench documents
+P_RUNS = 3
 
 
 def _free_gib() -> str:
@@ -3496,6 +3605,36 @@ def _wide_rehearsal(torch, out, work, cards, mbp, n_docs, nshards, M):
                              f"{got} != baseline_cpu {rec['baseline']}")
 
 
+def _wide_trace(torch, rb, opts, rec, mums, tmp) -> dict:
+    """Row w's scan once more (the shards and M of `rec`) under
+    torch.profiler, from the end of parse_side to the end of analyze (the
+    shard stages): each card's busy time and the time k or more cards were
+    busy at once. Its bytes must equal `mums`; a trace that cannot be
+    taken is recorded, not raised."""
+    from mumemto_tpu_torch.parallel import seqpfp
+    devs = [torch.device(d) for d in rec["devices"]]
+    t0 = time.perf_counter()
+    try:
+        res, spans = _trace_cards(
+            torch, lambda phase: seqpfp.find_matches_seq_sharded(
+                rb, opts, devs, M=rec["M"], phase=phase),
+            tmp, ("parse_side", "analyze"))
+    except Exception as e:  # the row's numbers stand without the trace
+        trace = {"error": f"{type(e).__name__}: {str(e)[:500]}"}
+        log(f"[wide] w trace: {json.dumps(trace)}")
+        return trace
+    with open(mums, "rb") as f:
+        same = res.output_bytes() == f.read()
+    del res
+    trace = {"window": "shard stages", "wall_s": time.perf_counter() - t0,
+             "bytes_equal": same, "device_spans": len(spans),
+             **_busy_overlap(spans)}
+    log(f"[wide] w trace: {json.dumps(trace)}")
+    if not same:
+        raise AssertionError("w: the traced scan's bytes differ")
+    return trace
+
+
 def _wide_row(torch, out, work, rb, fastas, cards, nshards, M):
     """Row w: the KR kernel on the whole ext (_wide_kr), then
     find_matches_seq_sharded over every card (_wide_scan), its .mums
@@ -3514,6 +3653,8 @@ def _wide_row(torch, out, work, rb, fastas, cards, nshards, M):
     lib = os.path.join(work, "w_lib")
     got = _written_triple(torch, rec, res, rb, lib)
     del res
+    _empty_caches(torch)
+    rec["trace"] = _wide_trace(torch, rb, opts, rec, lib + ".mums", work)
     _empty_caches(torch)
     prefix = os.path.join(work, "w_cli")
     argv = fastas + ["-o", prefix, "--seq-shards", str(rec["shards"])]
@@ -3644,9 +3785,14 @@ def _wide_dcn(torch, out, work, fastas, devices, nparts):
 def phase_wide(torch, report, rows, doc_mbp=WIDE_DOC_MBP, n_docs=WIDE_DOCS,
                rehearsal_mbp=REHEARSAL_MBP, nshards=WIDE_SHARDS, M=WIDE_M,
                baseline=W_BASELINE, w2_parts=W2_PARTS, ranks=RANKS,
-               m3_docs=M3_DOCS, m3_doc_mbp=5.0, dcn_device=None):
+               m3_docs=M3_DOCS, m3_doc_mbp=5.0, dcn_device=None,
+               s_mbp=S_MBP, s_shards=S_SHARDS, p_doc_mbp=P_DOC_MBP,
+               p_runs=P_RUNS):
     """The named rows of `--cards` (cards_main), in this order whatever
-    the order given: wr, then on row w's collection (n_docs genomes of
+    the order given: s (_cards_sharded: the bench collection at each of
+    s_mbp, shards over every card and on cuda:0 alone, each input traced)
+    and p (_cards_partition on make_mesh(4), p_runs times), then wr, then
+    on row w's collection (n_docs genomes of
     doc_mbp Mbp at 0.01% SNPs, written as FASTAs) kw (row w's KR check
     alone), w, f1 and w2, whose triples (count, sum of lengths,
     occurrence hash) must equal native/baseline_cpu's: the live run of
@@ -3671,6 +3817,15 @@ def phase_wide(torch, report, rows, doc_mbp=WIDE_DOC_MBP, n_docs=WIDE_DOCS,
     triples = {}
     with tempfile.TemporaryDirectory() as work, \
             contextlib.ExitStack() as running:
+        if "s" in rows:
+            _cards_sharded(torch, out, [
+                (f"bench {mbp:g} Mbp", _bench_rb(mbp), mbp, None)
+                for mbp in s_mbp], s_shards, work, one_card=True,
+                trace_all=True)
+            _empty_caches(torch)
+        if "p" in rows:
+            _cards_partition(torch, out, p_doc_mbp, runs=p_runs)
+            _empty_caches(torch)
         if "m3" in rows:
             m3_coll = _synth_collection(m3_docs * m3_doc_mbp, m3_docs, seed=0)
             m3_rb = _rb_of(m3_coll)
@@ -3752,7 +3907,10 @@ def cards_main(rows=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     ncards = torch.cuda.device_count()
-    report = {"card": _smi(), "cards": ncards}
+    report = {"card": _smi(), "cards": ncards, "peer_access": {
+        f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+        for i in range(ncards) for j in range(ncards) if i != j}}
+    log(f"peer access: {json.dumps(report['peer_access'])}")
     phase_build(report)
     try:
         if rows:

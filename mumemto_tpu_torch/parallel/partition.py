@@ -11,13 +11,17 @@ the axes
   'seq'   sequence sharding inside one partition
 
 and runs the per-partition index construction and interval scan under
-vmap. Here a mesh is a small value (Mesh: a row-major grid of torch
-devices, which may repeat) and the counterpart of vmap is a plain loop:
-the scan has data-dependent sizes (torch.nonzero, the doubling's early
-exit), so partition p runs on the first device of mesh row p % rows, one
-partition after another on a device that holds several, and the results
-are stacked on the mesh's first device. The sum over partitions is
-parallel/mesh.psum.
+vmap, with the 'part' axis sharded, so every partition runs on its own
+devices at the same time. Here a mesh is a small value (Mesh: a row-major
+grid of torch devices, which may repeat), partition p runs on device
+p % n of its n devices (Mesh.part_device), and the counterpart of the
+sharded vmap is parallel/mesh.run_per_device: one host thread per
+distinct device scans that device's partitions in partition order, all
+devices at once (the scan has data-dependent sizes, torch.nonzero and the
+doubling's early exit, so each partition is its own program). The results
+are stacked in partition order on the mesh's first device; the sum over
+partitions is parallel/mesh.psum. The per-partition 'seq' sharding
+(GSPMD) is not carried over: a partition runs whole on its device.
 """
 
 from __future__ import annotations
@@ -42,9 +46,9 @@ class Mesh(NamedTuple):
     axis_names: tuple
 
     def part_device(self, p: int) -> torch.device:
-        """The device of partition p: the first of mesh row p % rows."""
-        row = len(self.devices) // self.shape[0]
-        return self.devices[(p % self.shape[0]) * row]
+        """The device of partition p: devices[p % n], so every device of
+        the mesh gets partitions."""
+        return self.devices[p % len(self.devices)]
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -105,7 +109,8 @@ def partitioned_step(texts, doc_ends, num_docs: int, min_match_len: int = 20,
     end positions per partition; tensors or numpy arrays. With a mesh,
     partition p is scanned on mesh.part_device(p). Without one, tensors
     are scanned on their own device and numpy arrays on make_mesh(), the
-    visible CUDA cards, which raises where there is none. Returns (total
+    visible CUDA cards, which raises where there is none. The partitions
+    run through parallel/mesh.run_per_device. Returns (total
     matches over all partitions, per-partition counts, per-partition
     longest match) on the first device."""
     nparts = len(texts)
@@ -113,13 +118,13 @@ def partitioned_step(texts, doc_ends, num_docs: int, min_match_len: int = 20,
         mesh = make_mesh()
     devs = [mesh.part_device(p) if mesh is not None else texts.device
             for p in range(nparts)]
-    counts, longest = [], []
-    for p, dev in enumerate(devs):
-        c, lg = _partition_scan(
-            _on(dev, texts[p], torch.uint8), _on(dev, doc_ends[p], I32),
-            num_docs, min_match_len, num_distinct)
-        counts.append(c)
-        longest.append(lg)
+
+    def scan(p):
+        return _partition_scan(
+            _on(devs[p], texts[p], torch.uint8),
+            _on(devs[p], doc_ends[p], I32), num_docs, min_match_len,
+            num_distinct)
+    counts, longest = zip(*pmesh.run_per_device(scan, range(nparts), devs))
     total = pmesh.psum(counts, devs[0])
     return total, pmesh.all_gather(counts, devs[0]), \
         pmesh.all_gather(longest, devs[0])
@@ -206,19 +211,22 @@ def compile_partitioned_matches(mesh: Mesh, num_docs: int, M: int = 4096,
     matches per partition as fn(texts, doc_ends) -> (counts[P], s/e/L
     [P, M], w_sa/w_da [P, M, num_docs]) on the mesh's first device. The
     host then applies the writer transforms per partition
-    (engine._emit_mums) and the MumemtoM merge. A partition with more than
-    M matches raises WindowCapacityError."""
+    (engine._emit_mums) and the MumemtoM merge. Partition p runs on
+    mesh.part_device(p), through parallel/mesh.run_per_device. A partition
+    with more than M matches raises WindowCapacityError."""
     if num_distinct is None:
         num_distinct = num_docs
     dev0 = mesh.devices[0]
 
     def checked(texts, doc_ends):
-        outs = []
-        for p in range(len(texts)):
+        def scan(p):
             dev = mesh.part_device(p)
-            outs.append(_partition_scan_matches(
+            return _partition_scan_matches(
                 _on(dev, texts[p], torch.uint8), _on(dev, doc_ends[p], I32),
-                num_docs, min_match_len, num_distinct, M))
+                num_docs, min_match_len, num_distinct, M)
+        nparts = len(texts)
+        outs = pmesh.run_per_device(
+            scan, range(nparts), [mesh.part_device(p) for p in range(nparts)])
         out = tuple(pmesh.all_gather([o[k] for o in outs], dev0)
                     for k in range(6))
         _check_capacity(out[0].cpu().numpy(), M, "partitioned match scan")

@@ -6,7 +6,9 @@ tables are metadata-sized (|D| + |P| << n for repetitive collections, the
 point of PFP) and every device holds a copy; the O(n) row space (expansion
 operands, the big 2-key sort, per-row LCP and the interval analysis) is
 sharded. The mesh is a list of devices, one per shard, which may repeat
-(parallel/mesh.py): on one card every shard runs on it, one after another.
+(parallel/mesh.py): each distinct device gets a host thread that runs its
+shards in shard order while the other devices run theirs; on one card
+every shard runs on it, one after another, on the caller's thread.
 
 The scan is the block scan of parallel/widepfp.py (stages A-D with
 explicit per-shard carries, linear total work). This module holds its
@@ -34,6 +36,7 @@ modes (tests/test_torch_seqpfp.py).
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -69,12 +72,22 @@ def _bitonic_block_sort(blocks: list, devices: list,
     always comes first. Two partners on one device sort the pair once and
     take a half each.
 
+    Execution (parallel/mesh.run_per_device): the first sorts run on each
+    device's thread; then one thread per device walks the rounds, and in
+    each round takes its side of every pair it is part of, in pair order.
+    Partners on two devices meet twice: before they copy (each side's
+    block of the last round is in place) and after (both copies are made,
+    so each side may drop its pre-round block). A device thus holds one
+    pair's copy at a time, as the serial network did.
+
     The sort takes the list over: each entry is replaced as its block is
     sorted, so no unsorted block outlives its sort, also where the caller
     still holds the list; the list is returned."""
     nshards = len(blocks)
-    for i in range(nshards):
+
+    def first(i):
         blocks[i] = ops_pfp._sort_rows(blocks[i], num_keys)
+    pmesh.run_per_device(first, range(nshards), devices)
     if nshards == 1:
         return blocks
     B = blocks[0][0].shape[0]
@@ -84,42 +97,48 @@ def _bitonic_block_sort(blocks: list, devices: list,
             torch.cat([a, b]) for a, b in zip(lo_ops, hi_ops)), num_keys)
 
     p = nshards.bit_length() - 1
-    for k in range(1, p + 1):
-        for j in range(k - 1, -1, -1):
-            d = 1 << j
-            for lo in range(nshards):
-                if lo & d:
-                    continue
-                hi = lo | d
+    rounds = [(k, 1 << j) for k in range(1, p + 1)
+              for j in range(k - 1, -1, -1)]
+    pairs = [[(lo, lo | d, ((lo >> k) & 1) == 0)
+              for lo in range(nshards) if not lo & d] for k, d in rounds]
+    meet = {(r, lo): threading.Barrier(2)
+            for r, rnd in enumerate(pairs) for lo, hi, _ in rnd
+            if devices[lo] != devices[hi]}
+
+    def walk(dev):
+        for r, rnd in enumerate(pairs):
+            for lo, hi, asc in rnd:
                 # ascending pairs keep the lower half on the lower shard
-                asc = ((lo >> k) & 1) == 0
-                lo_ops, hi_ops = blocks[lo], blocks[hi]
-                blocks[lo] = blocks[hi] = None
                 if devices[lo] == devices[hi]:
-                    mrg = merged(lo_ops, hi_ops)
-                    del lo_ops, hi_ops
-                    lower = tuple(a[:B] for a in mrg)
-                    upper = tuple(a[B:] for a in mrg)
-                    blocks[lo], blocks[hi] = (lower, upper) if asc \
-                        else (upper, lower)
+                    if devices[lo] == dev:
+                        mrg = merged(blocks[lo], blocks[hi])
+                        lower = tuple(a[:B] for a in mrg)
+                        upper = tuple(a[B:] for a in mrg)
+                        blocks[lo], blocks[hi] = (lower, upper) if asc \
+                            else (upper, lower)
+                        # the halves alone keep the merged pair alive: it
+                        # goes once a later round has replaced both
+                        del mrg, lower, upper
                     continue
+                if dev not in (devices[lo], devices[hi]):
+                    continue
+                mine, other = (lo, hi) if devices[lo] == dev else (hi, lo)
+                meet[r, lo].wait()
                 # each side gets the other's block and sorts the pair
-                swapped = [pmesh.ppermute([a, b], [(0, 1), (1, 0)],
-                                          [devices[lo], devices[hi]])
-                           for a, b in zip(lo_ops, hi_ops)]
-                hi_on_lo = tuple(t[0] for t in swapped)
-                lo_on_hi = tuple(t[1] for t in swapped)
-                # each pair's copies go before the next pair's are made
-                del swapped
-                mrg = merged(lo_ops, hi_on_lo)
-                del lo_ops, hi_on_lo
-                blocks[lo] = tuple((a[:B] if asc else a[B:]).clone()
-                                   for a in mrg)
-                mrg = merged(lo_on_hi, hi_ops)
-                del lo_on_hi, hi_ops
-                blocks[hi] = tuple((a[B:] if asc else a[:B]).clone()
-                                   for a in mrg)
+                copy = tuple(a.to(dev) for a in blocks[other])
+                meet[r, lo].wait()
+                pair = (blocks[lo], copy) if mine == lo else \
+                    (copy, blocks[hi])
+                blocks[mine] = None
+                mrg = merged(*pair)
+                del pair, copy
+                keep_lower = asc == (mine == lo)
+                blocks[mine] = tuple((a[:B] if keep_lower else a[B:]).clone()
+                                     for a in mrg)
                 del mrg
+
+    cards = list(dict.fromkeys(devices))
+    pmesh.run_per_device(walk, cards, cards, barriers=meet.values())
     return blocks
 
 
@@ -140,9 +159,10 @@ def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
     shard_dict builds the dictionary index distributed over the mesh
     (parallel/sharddict.py) instead of on devices[0] alone, with the same
     output; None reads the environment: MUMEMTO_SHARD_DICT=1 turns it on.
-    `phase(name)` is called after each stage (build_pfp or read_parse,
-    dict_index, parse_side, operands, sort, then analyze and compact per
-    shard, assemble); without one, engine._phase_logger's hook is."""
+    `phase(name)` is called on the caller's thread after each stage
+    (build_pfp or read_parse, dict_index, parse_side, operands, sort,
+    analyze: stages C and D of every shard, assemble); without one,
+    engine._phase_logger's hook is."""
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.parallel import widepfp
 

@@ -6,7 +6,10 @@ space [0, nr) is cut into P equal blocks, one per shard of the mesh
 (parallel/mesh.py: a list of devices which may repeat); the dictionary and
 parse tables are small and every device holds a copy. Every scan over rows
 is block-local with an explicit carry, so the total work is linear in the
-row count at any shard count.
+row count at any shard count. As under the JAX module's shard_map, every
+device works its own shards while the others work theirs: each distinct
+device has a host thread (mesh.run_per_device), and the stages that read
+another shard's rows (the sort's rounds, the halos) meet its thread first.
 
 Stages:
 
@@ -159,23 +162,21 @@ def _exchange_halos(blocks: list, H: int, devices: list) -> list:
     (left, right), each a tuple with one H-row tensor per operand, on
     devices[i]. blocks[i] is shard i's operand tuple. The edge shards
     receive wrapped rows, which _analyze_block neutralizes; one shard
-    alone gets zeros."""
+    alone gets zeros. Each shard's thread copies its own halos in
+    (parallel/mesh.run_per_device), after the sort's threads are
+    joined."""
     nshards = len(blocks)
     if nshards == 1:
         z = tuple(torch.zeros(H, dtype=a.dtype, device=a.device)
                   for a in blocks[0])
         return [(z, z)]
-    from_prev = [(s, (s + 1) % nshards) for s in range(nshards)]
-    from_next = [(s, (s - 1) % nshards) for s in range(nshards)]
-    lefts, rights = [], []
-    for k in range(len(blocks[0])):
-        # clones: a halo must not keep its neighbour's whole block alive
-        lefts.append(pmesh.ppermute([b[k][-H:].clone() for b in blocks],
-                                    from_prev, devices))
-        rights.append(pmesh.ppermute([b[k][:H].clone() for b in blocks],
-                                     from_next, devices))
-    return [(tuple(l[i] for l in lefts), tuple(r[i] for r in rights))
-            for i in range(nshards)]
+
+    def pull(i):
+        # copies: a halo must not keep its neighbour's whole block alive
+        left, right = blocks[(i - 1) % nshards], blocks[(i + 1) % nshards]
+        return (tuple(a[-H:].to(devices[i], copy=True) for a in left),
+                tuple(a[:H].to(devices[i], copy=True) for a in right))
+    return pmesh.run_per_device(pull, range(nshards), devices)
 
 
 def _haloed(ops, halos):
@@ -313,10 +314,14 @@ def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
     (ops/pfp.pfp_scan_prepare) over the mesh `devices`, one shard per
     entry. Returns (counts, windows): counts = [emit, cand, BWT runs] over
     all shards on devices[0], windows the per-shard _compact_block dicts.
-    Stages A, C and D run shard after shard, so a device that holds
+    Every stage runs through parallel/mesh.run_per_device, one thread per
+    distinct device: a device's first shard copies the tables to it;
+    stage A, the sort's rounds and the halo copies each run on every
+    device at once; stages C and D run together for one shard, whose
+    transients go before the device's next shard, so a device that holds
     several shards holds one block's transients at a time. `phase(name)`
-    is called after each stage (operands and sort once, analyze and
-    compact once per shard)."""
+    is called on the caller's thread after each stage (operands, sort,
+    analyze: C and D)."""
     phase = phase or ops_pfp._noop_phase
     nshards = len(devices)
     nr, nd, w = prep["nr"], prep["nd"], prep["w"]
@@ -330,38 +335,43 @@ def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
     H = size_cap + 1
     assert H <= B, "shard blocks must cover one halo width"
 
-    tabs = pmesh.replicate({k: prep[k] for k in TABLES}, devices)
-    for t in tabs.values():
-        t["grp_tab"] = ops_pfp._grp_tab(t["d"], t["grp_of_pos"],
-                                        t["grp_cross"], nd)
-    blocks = []
-    for i, dev in enumerate(devices):
+    # each device's copy of the tables, made and read by its own thread
+    tabs = {}
+
+    def operands(i):
+        dev = devices[i]
+        if dev not in tabs:
+            t = pmesh.place({k: prep[k] for k in TABLES}, dev)
+            t["grp_tab"] = ops_pfp._grp_tab(t["d"], t["grp_of_pos"],
+                                            t["grp_cross"], nd)
+            tabs[dev] = t
         t = tabs[dev]
-        blocks.append(_block_operands(
+        return _block_operands(
             i * B, t["parse"], t["d_starts"], t["cumcnt"], prep["m"],
             prep["total_rows"], prep["n_text"], t["isaP"], t["grp_tab"],
-            t["doc_ends"], B, nd, w, num_docs))
+            t["doc_ends"], B, nd, w, num_docs)
+    blocks = pmesh.run_per_device(operands, range(nshards), devices)
     phase("operands")
     blocks = _bitonic_block_sort(blocks, devices)
     phase("sort")
     halos = _exchange_halos(blocks, H, devices)
-    windows, counts = [], []
-    for i, dev in enumerate(devices):
+
+    def analyze(i):
         haloed = _haloed(blocks[i], halos[i])
-        blocks[i] = None
+        blocks[i] = halos[i] = None
         res, (ssa_pad, da_pad), nruns_local = _analyze_block(
-            haloed, tabs[dev]["slt_table"], i, B, H, nshards, w, num_docs,
-            min_match_len, num_distinct, max_total_freq, max_doc_freq,
-            size_cap, need_ctx)
+            haloed, tabs[devices[i]]["slt_table"], i, B, H, nshards, w,
+            num_docs, min_match_len, num_distinct, max_total_freq,
+            max_doc_freq, size_cap, need_ctx)
         del haloed
-        phase("analyze")
-        windows.append(_compact_block(res, ssa_pad, da_pad, i * B, B, H, M,
-                                      num_docs, mem_mode, need_ctx))
-        counts.append(torch.stack([res["emit"].sum(dtype=I32),
-                                   res["cand"].sum(dtype=I32), nruns_local]))
-        del res, ssa_pad, da_pad
-        phase("compact")
-    counts = pmesh.psum(counts, devices[0])
+        window = _compact_block(res, ssa_pad, da_pad, i * B, B, H, M,
+                                num_docs, mem_mode, need_ctx)
+        return window, torch.stack([res["emit"].sum(dtype=I32),
+                                    res["cand"].sum(dtype=I32), nruns_local])
+    out = pmesh.run_per_device(analyze, range(nshards), devices)
+    phase("analyze")
+    windows = [wd for wd, _ in out]
+    counts = pmesh.psum([c for _, c in out], devices[0])
     counts[2] += 1
     return counts, windows
 

@@ -99,8 +99,8 @@ def test_make_mesh_rows_and_default():
     two = [CPU, torch.device("cpu", 0)]
     mesh = partition.make_mesh(devices=two * 2)      # 2 x 2
     assert mesh.shape == (2, 2) and mesh.axis_names == ("part", "seq")
-    # row r starts at devices[2 * r]: both rows start on "cpu"
-    assert [mesh.part_device(p) for p in range(3)] == [CPU, CPU, CPU]
+    # partition p on devices[p % 4]: every device of the mesh gets some
+    assert [mesh.part_device(p) for p in range(5)] == two * 2 + [CPU]
     mesh = partition.make_mesh(devices=two)          # (2,)
     assert [mesh.part_device(p) for p in range(3)] == [two[0], two[1], two[0]]
     with pytest.raises(RuntimeError, match="CUDA is not available"):

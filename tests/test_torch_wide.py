@@ -201,7 +201,7 @@ def test_phase_wide_rehearsal(chip_smoke, monkeypatch):
     assert w["kr"]["breaks"] > 0 and w["kr"]["launches"] == 1
     assert w["cli"]["rc"] == 0 and w["cli"]["mums_equal_library"]
     assert {"build_pfp", "dict_index", "parse_side", "operands", "sort",
-            "analyze", "compact", "assemble", "emit (in assemble)"} == set(
+            "analyze", "assemble", "emit (in assemble)"} == set(
                 w["stages_s"])
     f1 = rows["f1"]
     assert f1["rc"] == 0 and f1["triple"] == base
