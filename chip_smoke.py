@@ -103,7 +103,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      its bound. Each row prints nd, the range-min levels and their product
      against 2^31, nr, walls, stage times, Mbp/s, peak memory and KR
      launches (exactly 1 a scan); the counts of a, b, c and the 96 Mbp
-     tier must equal live baseline_cpu runs, started together at the end.
+     tier must equal live baseline_cpu runs, started together at the end;
+ 15. the throughput harness (python -m mumemto_tpu_torch.bench, run
+     in-process: phase_bench) on mum8 (strict MUMs at 8 Mbp), real8 (the
+     gapped collection) and f3_8 (-f 3), 3 timed calls each after a cold
+     one, the stage call and the traced call, each count against the one
+     on record and a live baseline_cpu run; its records go in the report.
 `python3 chip_smoke.py --cards` is another, shorter program for a machine
 with several cards: the 8-shard scan spread over them with the dictionary
 index on one device and sharded, wall and peak per card (cards_main).
@@ -120,7 +125,7 @@ sharded scan over every card, a trace of its shard stages, then the CLI
 with --seq-shards, f1 the default CLI on one card (the union refused,
 then the partition fallback), w2 MumemtoM as dcn ranks, m3 113 genomes
 of 5 Mbp at 0.1% SNPs as dcn ranks.
-Every path of phases 5-8 and 10-14 is driven with the kernels' launch counts
+Every path of phases 5-8 and 10-15 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
 and -a must have launched none. The
@@ -143,53 +148,37 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+if __name__ == "__main__" and not os.path.isdir(
+        os.path.join(ROOT, "mumemto_tpu_torch")):
+    sys.exit("chip_smoke: mumemto_tpu_torch not found beside this script; "
+             "run it from the repository root")
+
+from mumemto_tpu_torch import bench  # noqa: E402
+from mumemto_tpu_torch.bench import (  # noqa: E402
+    IUPAC_CODES, StageTimer, SumTimer,
+    Baseline as _Baseline, Split as _Split,
+    build_cpu_baseline as _build_cpu_baseline,
+    busy_overlap as _busy_overlap, counted as _counted,
+    cpu_baseline as _cpu_baseline, occ_stats as _occ_stats, rb_of as _rb_of,
+    run_cpu_baseline as _run_cpu_baseline, smi as _smi, sync_all as _sync_all,
+    synth_collection as _synth_collection,
+    synth_collection_real as _synth_collection_real,
+    trace_cards as _trace_cards, triple as _triple,
+    write_fastas as _write_fastas)
+
 KR_SOURCE = "mumemto_tpu_torch/kernels/csrc/kr_mask.cu"
 KR_REPLACES = "mumemto_tpu/ops/pallas_kernels.py:103"
 PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
 PROBE_REPLACES = "tools/mosaic_probe.py:25"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the data sheet's peak)
 N_DOCS = 8
-EXPECT_8MBP = 6759  # bench tier match count (README.md, BASELINE.md)
-EXPECT_F3_8MBP = 13522  # -f 3 on the same input (native/baseline_cpu)
-EXPECT_32MBP = 27119  # the 32 Mbp tier (native/baseline_cpu)
+EXPECT_8MBP = bench.CONFIGS["mum8"].expected  # the bench tier (6759)
+EXPECT_F3_8MBP = bench.CONFIGS["f3_8"].expected  # -f 3 on the same input
+EXPECT_32MBP = bench.CONFIGS["mum32"].expected  # the 32 Mbp tier
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def _smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-class StageTimer:
-    """phase(name) callback: synchronizes the card and records the wall
-    time since the previous call."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.stages = {}
-        self.t = time.perf_counter()
-
-    def __call__(self, name):
-        _sync_all(self.torch)
-        now = time.perf_counter()
-        self.stages[name] = now - self.t
-        self.t = now
-
-
-class SumTimer(StageTimer):
-    """A StageTimer that adds up the stages called more than once."""
-
-    def __call__(self, name):
-        before = self.stages.get(name, 0.0)
-        super().__call__(name)
-        self.stages[name] += before
 
 
 def _event_ms(torch, fn, reps: int, device=None) -> float:
@@ -215,179 +204,6 @@ def _current(torch, device):
     if device is None or device.type != "cuda":
         return contextlib.nullcontext()
     return torch.cuda.device(device)
-
-
-def _synth_collection(total_mbp: float, n_docs: int, seed: int = 0,
-                      snp_rate: float = 0.001):
-    """The bench collection (the same bytes as bench.py's synth_collection
-    for the same arguments): n_docs mutated copies of one random base
-    sequence, ~total_mbp Mbp in all before revcomp, 0.1% SNPs by default
-    (the pairwise divergence of human haplotypes)."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    base_len = int(total_mbp * 1e6 / n_docs)
-    base = rng.integers(0, 4, base_len, dtype=np.int8)
-    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    docs = []
-    for _ in range(n_docs):
-        s = base.copy()
-        n_mut = max(1, int(base_len * snp_rate))
-        pos = rng.integers(0, base_len, n_mut)
-        s[pos] = (s[pos] + rng.integers(1, 4, n_mut)) % 4
-        docs.append(acgt[s])
-    return docs
-
-
-GAP_LENGTHS = (100, 1000, 10_000, 50_000)
-GAP_PROBS = (0.6, 0.25, 0.1, 0.05)
-IUPAC_CODES = b"RYKMSWBDHV"
-
-
-def _synth_collection_real(total_mbp: float, n_docs: int, seed: int = 0,
-                           iupac: bool = False):
-    """The bench collection with the alphabet of a real assembly:
-    _synth_collection's documents for the same arguments (the same lengths,
-    so Mbp stays comparable) with assembly gaps written over them as runs
-    of N and, with iupac, the ten IUPAC ambiguity codes.
-
-    Per document, independently (gaps differ between assemblies),
-    max(1, doc_len // 250_000) gaps overwrite (never insert) bases:
-    positions uniform, lengths drawn from GAP_LENGTHS with GAP_PROBS. 100
-    is NCBI's convention for a gap of unknown size and by far the most
-    common, 1000 and 10 000 are scaffolding gaps, 50 000 is what GRCh38
-    writes for its largest unsized gaps (heterochromatin, short arms). The
-    mean is 3810 bases a gap, so about 1.5% of the bases are N. A gap is
-    clipped to the document and to a tenth of its length (which bites below
-    500 kbp a document: the 1 Mbp byte checks). Document 0 always holds one
-    gap of 50 000 (so clipped); one gap of document 1 starts at its first
-    base and one of document 2 ends at its last, a run that meets the '$'.
-    With N the text has 9 distinct bytes with the parse's 0, 1, 2 and '$':
-    one more than the 3-bit seed takes.
-
-    iupac: single non-N bases at rate 1e-5 (at least one a document) become
-    a code drawn from RYKMSWBDHV, and document 0 gets each code once more,
-    so all ten occur: 19 distinct bytes, over the 16 of the packed LCP
-    bottom. The gaps are the same with and without iupac."""
-    import numpy as np
-    docs = _synth_collection(total_mbp, n_docs, seed=seed)
-    rng = np.random.default_rng([seed, 0x4E])       # the gaps
-    rng_c = np.random.default_rng([seed, 0x49])     # the codes
-    codes = np.frombuffer(IUPAC_CODES, np.uint8)
-    for i, d in enumerate(docs):
-        n = int(d.size)
-        n_gaps = max(1, n // 250_000)
-        lens = rng.choice(GAP_LENGTHS, n_gaps, p=GAP_PROBS)
-        if i == 0:
-            lens[0] = GAP_LENGTHS[-1]
-        lens = np.minimum(lens, max(1, n // 10))
-        pos = (rng.random(n_gaps) * (n - lens + 1)).astype(np.int64)
-        if i == 1:
-            pos[0] = 0
-        if i == 2:
-            pos[0] = n - lens[0]
-        if iupac:
-            n_codes = max(1, int(round(n * 1e-5)))
-            where = rng_c.integers(0, n, n_codes)
-            what = codes[rng_c.integers(0, codes.size, n_codes)]
-            if i == 0:
-                where = np.concatenate([where,
-                                        rng_c.integers(0, n, codes.size)])
-                what = np.concatenate([what, codes])
-        for p, ln in zip(pos.tolist(), lens.tolist()):
-            d[p:p + ln] = ord("N")
-        if iupac:
-            # after the gaps, so no code breaks a run: a code drawn into a
-            # gap (or onto another code) moves to the next free base
-            for p, c in zip(where.tolist(), what.tolist()):
-                while d[p % n] == ord("N") or d[p % n] in codes:
-                    p += 1
-                d[p % n] = c
-    return docs
-
-
-def _build_cpu_baseline():
-    """native/baseline_cpu, built by native/build_baseline.py when missing
-    or stale."""
-    built = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "native", "build_baseline.py")],
-        capture_output=True, text=True, timeout=600)
-    if built.returncode != 0:
-        raise AssertionError(f"native/baseline_cpu did not build: "
-                             f"{built.stdout} {built.stderr[-2000:]}")
-
-
-def _run_cpu_baseline(text, seq_lengths, opts, mbp):
-    """(Mbp/s, matches) of one run of native/baseline_cpu (_cpu_baseline)."""
-    r = _cpu_baseline(text, seq_lengths, opts)
-    return mbp / r["t_total"], r["matches"]
-
-
-class _Baseline:
-    """One run of native/baseline_cpu, the single-core C++ SA-IS + Kasai +
-    LCP-interval scan, on the same input, in a process of its own: started
-    here (the binary built first when missing or stale), read by
-    result(), killed by close() if still running (a run on 1.9 G
-    characters takes minutes, so the caller works meanwhile)."""
-
-    def __init__(self, text, seq_lengths, opts):
-        _build_cpu_baseline()
-        self.dir = tempfile.TemporaryDirectory()
-        tf = os.path.join(self.dir.name, "text.bin")
-        lf = os.path.join(self.dir.name, "lens.txt")
-        with open(tf, "wb") as f:
-            text.tofile(f)
-        with open(lf, "w") as f:
-            f.write("".join(f"{n}\n" for n in seq_lengths))
-        self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(
-            [os.path.join(ROOT, "native", "baseline_cpu"), tf, lf,
-             str(opts.min_match_len), str(opts.num_distinct),
-             str(opts.max_doc_freq), str(opts.max_total_freq),
-             str(int(opts.no_max_freq)), str(int(opts.use_revcomp)), "1"],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-    def result(self, timeout: float = 3600) -> dict:
-        """Its JSON record (matches, sum_len, occ_hash, t_total, ...) and
-        wall_s, the seconds from its start to its end."""
-        try:
-            out, err = self.proc.communicate(timeout=timeout)
-        finally:
-            self.close()
-        if self.proc.returncode != 0:
-            raise AssertionError(f"native/baseline_cpu failed: {err[-2000:]}")
-        return {**json.loads(out), "wall_s": time.perf_counter() - self.t0}
-
-    def close(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.communicate()
-        self.dir.cleanup()
-
-
-def _cpu_baseline(text, seq_lengths, opts) -> dict:
-    """The JSON record of one run of native/baseline_cpu (_Baseline) on
-    the same input, waited for."""
-    return _Baseline(text, seq_lengths, opts).result()
-
-
-def _triple(rec) -> dict:
-    """Match count, sum of lengths and occurrence hash of a record."""
-    return {k: rec[k] for k in ("matches", "sum_len", "occ_hash")}
-
-
-def _rb_of(docs):
-    """Documents (uint8 arrays) as a RefBuilder: fwd $ revcomp $ each."""
-    import numpy as np
-    from mumemto_tpu_torch.refbuilder import RefBuilder, revcomp
-    pieces, seq_lengths = [], []
-    dollar = np.frombuffer(b"$", dtype=np.uint8)
-    for fwd in docs:
-        pieces += [fwd, dollar, revcomp(fwd), dollar]
-        seq_lengths.append(2 * (fwd.size + 1))
-    text = np.concatenate(pieces)
-    return RefBuilder(text=text, seq_lengths=seq_lengths, num_docs=len(docs),
-                      use_revcomp=True, input_files=[], multifasta_names=[],
-                      multifasta_lengths=[])
 
 
 def _bench_rb(mbp: float, seed: int = 0, n_docs: int = N_DOCS):
@@ -868,18 +684,6 @@ def _tiny_mem_docs(seed: int):
     return docs
 
 
-def _counted(torch, fn):
-    """(fn(), seconds, launch counts) with the counts set to 0 just before
-    fn and read just after."""
-    from mumemto_tpu_torch.kernels import kr_mask, probe
-    kr_mask.launches = probe.launches = 0
-    t0 = time.perf_counter()
-    out = fn()
-    _sync_all(torch)
-    return out, time.perf_counter() - t0, {"kr_break_mask": kr_mask.launches,
-                                           "add_one": probe.launches}
-
-
 def _direct_index(torch, rb) -> dict:
     """The -g index stages alone on the padded text: doubling rounds and
     history size, and, where the alphabet takes the PLCP (<= 8 letters),
@@ -1081,16 +885,6 @@ def _kr_used(label, launches):
     of it the probe kernel."""
     if launches["kr_break_mask"] < 1 or launches["add_one"]:
         raise AssertionError(f"{label}: kernel launches {launches}")
-
-
-def _write_fastas(docs, tmp):
-    paths = []
-    for i, fwd in enumerate(docs):
-        path = os.path.join(tmp, f"d{i}.fa")
-        with open(path, "wb") as fh:
-            fh.write(b">d%d\n" % i + fwd.tobytes() + b"\n")
-        paths.append(path)
-    return paths
 
 
 def _mums_set(path, num_docs, order=None):
@@ -2244,46 +2038,32 @@ def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
 # _rmq_query's guard (both packages): a range-min table of n entries x
 # levels is refused at n x levels >= 2^31, where its int32 flat index would
 # overflow
+BENCH_ARGV = ["--config", "mum8", "real8", "f3_8", "--reps", "3",
+              "--baseline"]
+
+
+def phase_bench(torch, report, argv=BENCH_ARGV):
+    """The throughput harness on the card (module docstring, phase 15):
+    bench.run on `argv`. The harness counts every call's kernel launches
+    from 0 and raises unless each call launched the KR kernel as its route
+    must and the count equals the one on record and the live baseline's;
+    each configuration's launches go in the main path's record."""
+    out = {"paths": {}, "records": {}}
+    for rec in bench.run(torch, bench.parse_args(argv)):
+        log(f"[bench] {json.dumps(rec)}")
+        if rec["matches"] != rec["expected"] or \
+                rec["baseline"]["matches"] != rec["matches"]:
+            raise AssertionError(f"bench {rec['config']}: {rec['matches']} "
+                                 f"matches, {rec['expected']} on record, "
+                                 f"baseline {rec['baseline']}")
+        out["records"][rec["config"]] = rec
+        out["paths"][f"bench {rec['config']}"] = {
+            "kr_break_mask": rec["kr_launches"] * rec["calls"], "add_one": 0}
+    report["bench"] = out
+
+
 FLAT_INDEX_LIMIT = 2**31
 SCALE_DOCS = (10, 20)  # BASELINE.md configs 2-3 and 4: E. coli-like genomes
-
-
-class _Split:
-    """Seconds of named module functions while active, each call between
-    two card synchronizations (targets: {name: (module, attribute)});
-    every find_matches call also gets `phase` (a SumTimer, restarted at the
-    call) for its stage split."""
-
-    def __init__(self, torch, targets, phase):
-        self.torch, self.targets, self.phase = torch, targets, phase
-        self.s = dict.fromkeys(targets, 0.0)
-        self.calls = dict.fromkeys(targets, 0)
-
-    def __enter__(self):
-        self.real = {n: getattr(m, a) for n, (m, a) in self.targets.items()}
-        for name, (mod, attr) in self.targets.items():
-            setattr(mod, attr, self._timed(name, self.real[name],
-                                           attr == "find_matches"))
-        return self
-
-    def _timed(self, name, real, scan):
-        def timed(*a, **kw):
-            self.torch.cuda.synchronize()
-            if scan:
-                kw["phase"] = self.phase
-                self.phase.t = time.perf_counter()
-            t0 = time.perf_counter()
-            try:
-                return real(*a, **kw)
-            finally:
-                self.torch.cuda.synchronize()
-                self.s[name] += time.perf_counter() - t0
-                self.calls[name] += 1
-        return timed
-
-    def __exit__(self, *exc):
-        for name, (mod, attr) in self.targets.items():
-            setattr(mod, attr, self.real[name])
 
 
 def _flat_sizes(spy) -> dict:
@@ -2631,11 +2411,6 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
     report["scale"] = out
 
 
-def _sync_all(torch):
-    for i in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(i)
-
-
 class _AllCardsTimer(SumTimer):
     """A SumTimer that waits for every visible card, not the current one,
     and keeps each card's peak allocation within each stage."""
@@ -2686,109 +2461,6 @@ def _reset_peaks(torch):
 
 def _gib(peaks):
     return "[" + ", ".join(f"{p / 2**30:.2f}" for p in peaks) + "] GiB"
-
-
-def _occ_stats(path, num_docs, order=None) -> dict:
-    """The match count, the sum of lengths and native/baseline_cpu's
-    occurrence hash (its emit_mum: an order-free uint64 sum of
-    mix(offset * 131 + doc * 7 + (3 if '-') + length) over every
-    occurrence) of a .mums file; with `order` (column j of the file is
-    document order[j]) the columns are put in document order first."""
-    import numpy as np
-    from mumemto_tpu_torch import formats
-    L, S, T = formats.parse_mums(path, num_docs)
-    if order is not None:
-        cols = [order.index(d) for d in range(num_docs)]
-        S, T = S[:, cols], T[:, cols]
-    u = np.uint64
-    x = (S.astype(u) * u(131) + np.arange(num_docs, dtype=u) * u(7)
-         + np.where(T, 0, 3).astype(u) + L.astype(u)[:, None])[S >= 0]
-    x ^= x >> u(33)
-    x *= u(0xff51afd7ed558ccd)
-    x ^= x >> u(33)
-    return {"matches": int(L.size), "sum_len": int(L.astype(np.int64).sum()),
-            "occ_hash": int(x.sum(dtype=u))}
-
-
-def _busy_overlap(spans) -> dict:
-    """Device activity [(card, start_us, end_us)] summed up: each card's
-    busy us (the union of its spans), the us in which at least one and at
-    least two cards were busy, the us in which at least k cards were busy
-    for every k, and the span from first start to last end."""
-    by_card = {}
-    for card, a, b in spans:
-        by_card.setdefault(card, []).append((a, b))
-    merged = {}
-    for card, ivs in by_card.items():
-        runs = []
-        for a, b in sorted(ivs):
-            if runs and a <= runs[-1][1]:
-                runs[-1][1] = max(runs[-1][1], b)
-            else:
-                runs.append([a, b])
-        merged[card] = runs
-    edges = sorted((t, step) for runs in merged.values() for a, b in runs
-                   for t, step in ((a, 1), (b, -1)))
-    at_least = [0.0] * (len(merged) + 1)
-    depth, prev = 0, None
-    for t, step in edges:
-        if prev is not None:
-            for k in range(1, depth + 1):
-                at_least[k] += t - prev
-        depth, prev = depth + step, t
-    return {"busy_us": {str(c): sum(b - a for a, b in runs)
-                        for c, runs in sorted(merged.items())},
-            "any_busy_us": at_least[1] if merged else 0.0,
-            "overlap_us": at_least[2] if len(merged) > 1 else 0.0,
-            "cards_busy_us": {str(k): at_least[k]
-                              for k in range(1, len(merged) + 1)},
-            "span_us": (max(b for _c, _a, b in spans)
-                        - min(a for _c, a, _b in spans)) if spans else 0.0}
-
-
-def _trace_cards(torch, fn, tmp, stages=None):
-    """(fn(phase), device spans): fn under torch.profiler (the cards'
-    activity, the CPU's where there is no card), over the whole call, or
-    with stages = (a, b) from the phase hook's call for stage a to its
-    call for stage b (the stages after a up to b); the spans [(card,
-    start_us, end_us)] of the kernels, copies and memsets of its chrome
-    trace."""
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CUDA]
-                   if torch.cuda.is_available() else [ProfilerActivity.CPU])
-    on = []
-
-    def switch(start):
-        _sync_all(torch)
-        if start and not on:
-            prof.start()
-            on.append(True)
-        elif on and not start:
-            prof.stop()
-            on.clear()
-
-    def phase(name):
-        if name in stages:
-            switch(name == stages[0])
-    try:
-        if stages is None:
-            switch(True)
-        out = fn(phase if stages else None)
-        switch(False)
-    finally:
-        if on:
-            prof.stop()
-    path = os.path.join(tmp, "trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    os.remove(path)
-    spans = [(int(e["args"]["device"]), float(e["ts"]),
-              float(e["ts"]) + float(e["dur"])) for e in events
-             if e.get("ph") == "X" and e.get("cat") in (
-                 "kernel", "gpu_memcpy", "gpu_memset")
-             and "device" in e.get("args", {})]
-    return out, spans
 
 
 def _order_of(fastas, parts):
@@ -3412,9 +3084,9 @@ M3_PER_DOC = 1928119     # the dictionary's growth a genome at 0.1% (m1)
 # native/baseline_cpu on row w's collection: count, sum of lengths and
 # occurrence hash from `--cards wbase` (599.4 s on the host of a machine
 # with an NVIDIA H100 80GB HBM3, PERF.md); a live wbase in the same call
-# replaces it
-W_BASELINE = {"matches": 61110, "sum_len": 4029012,
-              "occ_hash": 15288323120970386319}
+# replaces it (the harness's configuration w holds the same triple)
+W_BASELINE = dict(zip(("matches", "sum_len", "occ_hash"),
+                      bench.CONFIGS["w"].expected_triple))
 CARD_ROWS = ("s", "p", "wr", "wbase", "kw", "w", "f1", "w2", "m3")
 S_MBP = (8, 32)      # row s: the bench collection, 8 shards over the cards
 S_SHARDS = (8,)
@@ -3897,11 +3569,6 @@ def cards_main(rows=None) -> int:
     visible card, or with row names (CARD_ROWS) phase_wide's rows. Writes
     its report as chip_smoke_cards.json, or chip_smoke_cards_<rows>.json,
     in the output directory beside chip_smoke.json."""
-    if not os.path.isdir(os.path.join(ROOT, "mumemto_tpu_torch")):
-        print("chip_smoke: mumemto_tpu_torch not found beside this script; "
-              "run it from the repository root", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3933,11 +3600,6 @@ def cards_main(rows=None) -> int:
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(ROOT, "mumemto_tpu_torch")):
-        print("chip_smoke: mumemto_tpu_torch not found beside this script; "
-              "run it from the repository root", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3959,6 +3621,7 @@ def main() -> int:
         phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work)
         phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work)
     phase_real(torch, report)
+    phase_bench(torch, report)
     phase_scale(torch, report)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "mumemto_tpu", "bench"))
@@ -3977,6 +3640,7 @@ def main() -> int:
     report["path_launches"].update(report["sharded"]["paths"])
     report["path_launches"].update(report["modules"]["paths"])
     report["path_launches"].update(report["real"]["paths"])
+    report["path_launches"].update(report["bench"]["paths"])
     report["path_launches"].update(report["scale"]["paths"])
     pr = report["probe"]
     # add_one's bound: the (8, 128) int32 tile read once and written once

@@ -621,7 +621,10 @@ def test_cli_constants_copy(tmp_path):
 @pytest.mark.parametrize("args", [(0.02, 4, 0, 0.001), (0.003, 3, 2, 0.004),
                                   (0.05, 8, 1, 0.001)])
 def test_synth_collection_copy(args):
-    """chip_smoke.py's private copy gives bench.py's bytes for the seed."""
+    """The harness's copy (mumemto_tpu_torch.bench.synth_collection, which
+    chip_smoke.py imports as _synth_collection) gives bench.py's bytes for
+    the seed."""
+    from mumemto_tpu_torch import bench as t_bench
     sys.path.insert(0, ROOT)
     try:
         chip_smoke = importlib.import_module("chip_smoke")
@@ -629,6 +632,7 @@ def test_synth_collection_copy(args):
     finally:
         sys.path.remove(ROOT)
     mbp, n_docs, seed, snp = args
-    got = chip_smoke._synth_collection(mbp, n_docs, seed=seed, snp_rate=snp)
     want = bench.synth_collection(mbp, n_docs, seed=seed, snp_rate=snp)
-    assert len(got) == n_docs and _same(got, want)
+    for copy in (t_bench.synth_collection, chip_smoke._synth_collection):
+        got = copy(mbp, n_docs, seed=seed, snp_rate=snp)
+        assert len(got) == n_docs and _same(got, want)
