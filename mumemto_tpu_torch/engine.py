@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from mumemto_tpu_torch import formats, progress
+from mumemto_tpu_torch import formats, progress, trace
 from mumemto_tpu_torch.options import MatchOptions
 from mumemto_tpu_torch.device import resolve
 from mumemto_tpu_torch.ops import intervals as ops_intervals
@@ -181,15 +181,20 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
     read_parse, dict_index, parse_side, expand_sort_analyze; direct:
     suffix_array, lcp, analyze; then arrays_out, compact, emit, merge);
     without one, _phase_logger's hook is. show_progress: draw the phase
-    bar when progress.enabled() (library callers pass False)."""
+    bar when progress.enabled() (library callers pass False).
+
+    Each stage is a span of mumemto_tpu_torch.trace (pfp.build, ...,
+    engine.merge) under the call's root span, engine.find_matches; the
+    hook is called where the stage's span ends."""
     dev = resolve(device)
     # try/finally: a raising scan must not leak the module-global bar
     bar = progress.activate() if show_progress else None
     try:
-        return _find_matches_inner(
-            rb, opts, dev, pfp_w, pfp_mod,
-            phase if phase is not None else _phase_logger(dev), backend,
-            parse_prefix, arrays_out_prefix)
+        with trace.call("engine.find_matches"):
+            return _find_matches_inner(
+                rb, opts, dev, pfp_w, pfp_mod,
+                phase if phase is not None else _phase_logger(dev), backend,
+                parse_prefix, arrays_out_prefix)
     finally:
         if bar is not None:
             progress.deactivate()
@@ -199,7 +204,8 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
                         parse_prefix, arrays_out_prefix):
     size_cap = interval_size_cap(opts, rb.num_docs)
     if parse_prefix:
-        pfp = ops_pfp.pfp_from_parse_files(parse_prefix, dev, w=pfp_w)
+        with trace.span("pfp.read_parse"):
+            pfp = ops_pfp.pfp_from_parse_files(parse_prefix, dev, w=pfp_w)
         phase("read_parse")
         res, counts, n = ops_pfp.pfp_scan(
             pfp, rb.doc_ends, rb.num_docs, opts.min_match_len,
@@ -212,78 +218,89 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
             w=pfp_w, mod=pfp_mod, size_cap=size_cap, need_ctx=opts.merge,
             phase=phase)
     elif backend == "direct":
-        n_real = int(rb.text.size)
-        n = pad_size(n_real)
-        text = np.zeros(n, dtype=np.uint8)
-        text[:n_real] = rb.text
         # the PFP dict stage's alphabet levers; the pad byte 0 is part of
         # the padded text's alphabet
         seed_thr, lcp_thr = ops_pfp.seed_thresholds(
             set(ops_pfp._alphabet(rb.text)) | {0})
+        with trace.span("direct.text"):
+            n_real = int(rb.text.size)
+            n = pad_size(n_real)
+            text = np.zeros(n, dtype=np.uint8)
+            text[:n_real] = rb.text
+            text = torch.from_numpy(text).to(dev)
+            doc_ends = torch.from_numpy(rb.doc_ends).to(dev)
         res, counts = ops_pipeline.scan_collection(
-            torch.from_numpy(text).to(dev),
-            torch.from_numpy(rb.doc_ends).to(dev), n, rb.num_docs,
+            text, doc_ends, n, rb.num_docs,
             opts.min_match_len, opts.num_distinct, opts.max_total_freq,
             opts.max_doc_freq, size_cap=size_cap, need_ctx=opts.merge,
             alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr, phase=phase)
+        del text, doc_ends
     else:
         raise ValueError(f"unknown backend {backend!r}: use pfp or direct")
-    n_emit, n_cand, n_runs = (int(x) for x in counts.cpu())
     if arrays_out_prefix:
-        _write_arrays_from_res(res, arrays_out_prefix, rb.num_docs)
+        with trace.span("engine.arrays_out"):
+            _write_arrays_from_res(res, arrays_out_prefix, rb.num_docs)
         phase("arrays_out")
 
     results = MatchResults(opts=opts, num_docs=rb.num_docs)
-    results.bwt_runs = n_runs
     # a -p resume has no text
     results.text_length = (int(rb.text.size) if rb.text is not None
                            else sum(rb.seq_lengths))
     doc_offsets, doc_lens = _doc_metadata(rb, opts)
 
-    M = ops_pipeline.bucket(n_emit)
-    m = n_emit
-    if opts.mum_mode:
-        W = rb.num_docs  # distinct docs => window size <= N
-        s, e, L, w_sa, w_da = _to_host(ops_pipeline.compact_windows_mum(
-            res, n, M, W, rb.num_docs))
-        phase("compact")
+    with trace.span("engine.compact"):
+        n_emit, n_cand, n_runs = (int(x) for x in _to_host([counts])[0])
+        results.bwt_runs = n_runs
+        M = ops_pipeline.bucket(n_emit)
+        m = n_emit
+        if opts.mum_mode:
+            W = rb.num_docs  # distinct docs => window size <= N
+            s, e, L, w_sa, w_da = _to_host(ops_pipeline.compact_windows_mum(
+                res, n, M, W, rb.num_docs))
+        else:
+            # the window is as wide as the widest match: one readback of
+            # the match fields before the windows are gathered
+            _, s0, e0, _, _ = ops_pipeline.compact_fields(res, n, M)
+            if m:
+                trace.count(trace.READBACKS)
+            maxw = int((e0[:m] - s0[:m]).max()) if m else 1
+            W = ops_pipeline.bucket(maxw, lo=8)
+            s, e, L, w_sa, w_da, w_prev = _to_host(
+                ops_pipeline.compact_windows_mem(res, n, M, W, rb.num_docs))
+    phase("compact")
+    with trace.span("engine.emit"):
         valid = (s[:m, None] + np.arange(W)) < e[:m, None]
-        _emit_mums(results, s[:m], e[:m], L[:m], w_sa[:m],
-                   w_da[:m].astype(np.int32), valid, opts,
-                   doc_offsets, doc_lens, rb.num_docs)
-    else:
-        # the window is as wide as the widest match: one readback of the
-        # match fields before the windows are gathered
-        _, s0, e0, _, _ = ops_pipeline.compact_fields(res, n, M)
-        maxw = int((e0[:m] - s0[:m]).max()) if m else 1
-        W = ops_pipeline.bucket(maxw, lo=8)
-        s, e, L, w_sa, w_da, w_prev = _to_host(
-            ops_pipeline.compact_windows_mem(res, n, M, W, rb.num_docs))
-        phase("compact")
-        valid = (s[:m, None] + np.arange(W)) < e[:m, None]
-        w_da = w_da.astype(np.int32)
-        # deferred distinct-count (check_doc_range unique >= k,
-        # mem_finder.hpp:265-289)
-        unique = (valid & (w_prev[:m] < s[:m, None])).sum(axis=1)
-        keep = unique >= opts.num_distinct
-        _emit_mems(results, s[:m][keep], e[:m][keep], L[:m][keep],
-                   w_sa[:m][keep], w_da[:m][keep], valid[keep],
-                   opts, doc_offsets, doc_lens)
+        if opts.mum_mode:
+            _emit_mums(results, s[:m], e[:m], L[:m], w_sa[:m],
+                       w_da[:m].astype(np.int32), valid, opts,
+                       doc_offsets, doc_lens, rb.num_docs)
+        else:
+            w_da = w_da.astype(np.int32)
+            # deferred distinct-count (check_doc_range unique >= k,
+            # mem_finder.hpp:265-289)
+            unique = (valid & (w_prev[:m] < s[:m, None])).sum(axis=1)
+            keep = unique >= opts.num_distinct
+            _emit_mems(results, s[:m][keep], e[:m][keep], L[:m][keep],
+                       w_sa[:m][keep], w_da[:m][keep], valid[keep],
+                       opts, doc_offsets, doc_lens)
     phase("emit")
 
     if opts.merge:
-        Mc = ops_pipeline.bucket(n_cand)
-        has0, sa_first0, prev_ctx, next_ctx = _to_host(
-            ops_pipeline.compact_cand_thresh(res, n, Mc, rb.num_docs))
-        _merge_thresholds(results, has0[:n_cand], sa_first0[:n_cand],
-                          prev_ctx[:n_cand], next_ctx[:n_cand],
-                          doc_offsets, doc_lens)
+        with trace.span("engine.merge"):
+            Mc = ops_pipeline.bucket(n_cand)
+            has0, sa_first0, prev_ctx, next_ctx = _to_host(
+                ops_pipeline.compact_cand_thresh(res, n, Mc, rb.num_docs))
+            _merge_thresholds(results, has0[:n_cand], sa_first0[:n_cand],
+                              prev_ctx[:n_cand], next_ctx[:n_cand],
+                              doc_offsets, doc_lens)
         phase("merge")
     return results
 
 
 def _to_host(tensors) -> list:
-    """numpy copies of device tensors."""
+    """numpy copies of device tensors (each one readback)."""
+    tensors = list(tensors)
+    trace.count(trace.READBACKS, len(tensors))
     return [t.cpu().numpy() for t in tensors]
 
 
@@ -293,6 +310,7 @@ def _write_arrays_from_res(res, prefix: str, num_docs: int) -> None:
     trailing-terminator row carry doc id num_docs). The rows are selected
     on the device, so only the real rows are read back."""
     real = res["da"] < num_docs
+    trace.count(trace.READBACKS, 3)  # each mask index reads its size back
     sa, lcp, bwt = _to_host([res["sa"][real], res["lcp"][real],
                              res["bwt"][real]])
     formats.write_5byte(prefix + ".sa", sa.astype(np.uint64))
@@ -465,46 +483,56 @@ def _emit_mems(results, s, e, L, w_sa, w_da, valid, opts,
         results.mem_lines = []
         results.mem_records = []
         return
-    num_docs = len(doc_lens)
-    W = valid.shape[1]
-    nv = valid.sum(axis=1).astype(np.int64)
-    docs = np.minimum(w_da, num_docs - 1)
-    pos = w_sa.astype(np.int64) - doc_offsets[docs]
-    dl = doc_lens[docs]
-    if opts.use_revcomp:
-        neg = valid & (pos >= dl)
-    else:
-        neg = np.zeros_like(valid)
-    is_last = np.arange(W)[None, :] == (nv[:, None] - 1)
-    # '-' transform: 2*len - pos - L - 1, except the LAST occurrence of a
-    # match drops the -1 (mem_finder.hpp:248)
-    tpos = np.where(neg, 2 * dl - pos - L[:, None].astype(np.int64)
-                    - 1 + is_last, pos)
+    fmt, join = "engine.emit_mems.format", "engine.emit_mems.join"
+    with trace.span("engine.emit_mems.positions"):
+        num_docs = len(doc_lens)
+        W = valid.shape[1]
+        nv = valid.sum(axis=1).astype(np.int64)
+        docs = np.minimum(w_da, num_docs - 1)
+        pos = w_sa.astype(np.int64) - doc_offsets[docs]
+        dl = doc_lens[docs]
+        if opts.use_revcomp:
+            neg = valid & (pos >= dl)
+        else:
+            neg = np.zeros_like(valid)
+        is_last = np.arange(W)[None, :] == (nv[:, None] - 1)
+        # '-' transform: 2*len - pos - L - 1, except the LAST occurrence
+        # of a match drops the -1 (mem_finder.hpp:248)
+        tpos = np.where(neg, 2 * dl - pos - L[:, None].astype(np.int64)
+                        - 1 + is_last, pos)
 
-    # flat occurrence arrays, row-major (valid is a prefix mask per row;
-    # every emitted interval has >= 2 rows, required by the ragged joins)
-    assert nv.min() > 0, "empty emission window"
-    tposf = tpos[valid]
-    docf = w_da[valid].astype(np.int32)
-    negf = neg[valid]
-    offs = np.zeros(m + 1, dtype=np.int64)
-    np.cumsum(nv, out=offs[1:])
-    starts = offs[:-1]
-    # trailing comma after every occurrence except the row's last
-    rowid = np.repeat(np.arange(m), nv)
-    jj = np.arange(offs[-1]) - starts[rowid]
-    sep = np.where(jj == nv[rowid] - 1, "", ",")
-    pos_col = _join_ragged(np.char.add(
-        np.char.mod("%d", tposf), sep), starts)
-    doc_col = _join_ragged(np.char.add(
-        np.char.mod("%d", docf), sep), starts)
-    strand_col = _join_ragged(np.char.add(
-        np.where(negf, "-", "+"), sep), starts)
-    head = np.char.add(np.char.mod("%d", L.astype(np.int64)), "\t")
-    full = (head.astype(object) + pos_col + "\t" + doc_col + "\t"
-            + strand_col + "\n")
-    results.mem_lines = "".join(full.tolist()).encode().splitlines(
-        keepends=True)
+        # flat occurrence arrays, row-major (valid is a prefix mask per
+        # row; every emitted interval has >= 2 rows, required by the
+        # ragged joins)
+        assert nv.min() > 0, "empty emission window"
+        tposf = tpos[valid]
+        docf = w_da[valid].astype(np.int32)
+        negf = neg[valid]
+        offs = np.zeros(m + 1, dtype=np.int64)
+        np.cumsum(nv, out=offs[1:])
+        starts = offs[:-1]
+    with trace.span(fmt):
+        # trailing comma after every occurrence except the row's last
+        rowid = np.repeat(np.arange(m), nv)
+        jj = np.arange(offs[-1]) - starts[rowid]
+        sep = np.where(jj == nv[rowid] - 1, "", ",")
+    cols = []
+    for piece in (lambda: np.char.mod("%d", tposf),
+                  lambda: np.char.mod("%d", docf),
+                  lambda: np.where(negf, "-", "+")):
+        with trace.span(fmt):
+            pieces = np.char.add(piece(), sep)
+        with trace.span(join):
+            cols.append(_join_ragged(pieces, starts))
+        del pieces
+    pos_col, doc_col, strand_col = cols
+    with trace.span(fmt):
+        head = np.char.add(np.char.mod("%d", L.astype(np.int64)), "\t")
+    with trace.span(join):
+        full = (head.astype(object) + pos_col + "\t" + doc_col + "\t"
+                + strand_col + "\n")
+        results.mem_lines = "".join(full.tolist()).encode().splitlines(
+            keepends=True)
     results.mem_records = _MemRecords(L.astype(np.int64), tposf, docf,
                                       negf, offs)
 

@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import build
 
 KR_PRIME = 1999999973  # reference KR window-hash modulus (newscan.hpp:84)
@@ -28,16 +29,18 @@ def launcher():
     """(kr_break_mask, max_w): the C launcher of csrc/kr_mask.cu, built and
     bound at the first call, and the largest w it takes. The launcher's
     arguments are (ext, mask, count, ne, n_real, w, mod, stream); calls
-    made through it directly are not counted in `launches`."""
+    made through it directly are not counted in `launches`. The first
+    call is the span kernels.load."""
     global _fns
     if _fns is None:
-        fn = build.function(
-            "kr_mask", "kr_break_mask", ctypes.c_int,
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p])
-        _fns = (fn, build.function("kr_mask", "kr_break_mask_max_w",
-                                   ctypes.c_int, [])())
+        with trace.span("kernels.load"):
+            fn = build.function(
+                "kr_mask", "kr_break_mask", ctypes.c_int,
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p])
+            _fns = (fn, build.function("kr_mask", "kr_break_mask_max_w",
+                                       ctypes.c_int, [])())
     return _fns
 
 

@@ -16,6 +16,8 @@ import os
 import subprocess
 import sysconfig
 
+from mumemto_tpu_torch import trace
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "native", "mumemto_native.cc")
 OUT = os.path.join(HERE, "_native.so")
@@ -71,19 +73,21 @@ def _import():
 
 
 def get_native():
-    """The `_native` extension module, or None when unavailable."""
+    """The `_native` extension module, or None when unavailable. The first
+    call builds and loads it: the span native.load."""
     global _native, _tried
     if _tried:
         return _native
     _tried = True
     if os.environ.get("MUMEMTO_TPU_NO_NATIVE"):
         return None
-    # build (or staleness-check) first: importing before checking would
-    # happily load a stale .so built from older sources
-    if not build():
-        return None
-    try:
-        _native = _import()
-    except ImportError:
-        _native = None
+    with trace.span("native.load"):
+        # build (or staleness-check) first: importing before checking
+        # would happily load a stale .so built from older sources
+        if not build():
+            return None
+        try:
+            _native = _import()
+        except ImportError:
+            _native = None
     return _native

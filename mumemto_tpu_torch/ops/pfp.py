@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import kr_mask
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import suffix as ops_suffix
@@ -74,6 +75,7 @@ def _noop_phase(name: str) -> None:
 
 def _compact_breaks(mask: torch.Tensor) -> torch.Tensor:
     """Indices of mask=True, ascending."""
+    trace.count(trace.READBACKS)  # nonzero reads its size back
     return torch.nonzero(mask).flatten()
 
 
@@ -81,8 +83,10 @@ def compute_breaks(ext: torch.Tensor, n_text: int, w: int, mod: int
                    ) -> np.ndarray:
     """Break positions (window-end chars) in TEXT coords, as int32 numpy."""
     mask, count = kr_mask.break_mask(ext, n_text, w, mod)
+    trace.count(trace.READBACKS)
     if int(count) == 0:
         return np.zeros(0, dtype=np.int32)
+    trace.count(trace.READBACKS)  # the .cpu() below
     breaks = _compact_breaks(mask).to(I32).cpu().numpy()
     return breaks - 1  # ext coord -> text coord
 
@@ -165,6 +169,7 @@ def _fill_per_occ(values: torch.Tensor, starts_idx: torch.Tensor, nr: int):
     delta = torch.cat([values[:1], values[1:] - values[:-1]]).to(I32)
     keep = starts_idx < nr
     acc = torch.zeros(nr, dtype=I32, device=values.device)
+    trace.count(trace.READBACKS, 2)  # each mask index reads its size back
     acc.index_add_(0, starts_idx[keep], delta[keep])
     return torch.cumsum(acc, 0, dtype=I32)
 
@@ -207,17 +212,18 @@ def seed_thresholds(alpha):
 
 def _alphabet(bytes_np: np.ndarray) -> tuple:
     """Sorted distinct byte values via a presence mask over a uint16 view."""
-    bytes_np = np.ascontiguousarray(bytes_np)
-    even = bytes_np[:bytes_np.size & ~1]
-    present16 = np.zeros(65536, np.bool_)
-    present16[even.view(np.uint16)] = True
-    pairs = np.flatnonzero(present16)
-    present = np.zeros(256, np.bool_)
-    present[pairs & 255] = True
-    present[pairs >> 8] = True
-    if bytes_np.size & 1:
-        present[bytes_np[-1]] = True
-    return tuple(np.flatnonzero(present).tolist())
+    with trace.span("pfp.alphabet"):
+        bytes_np = np.ascontiguousarray(bytes_np)
+        even = bytes_np[:bytes_np.size & ~1]
+        present16 = np.zeros(65536, np.bool_)
+        present16[even.view(np.uint16)] = True
+        pairs = np.flatnonzero(present16)
+        present = np.zeros(256, np.bool_)
+        present[pairs & 255] = True
+        present[pairs >> 8] = True
+        if bytes_np.size & 1:
+            present[bytes_np[-1]] = True
+        return tuple(np.flatnonzero(present).tolist())
 
 
 def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
@@ -226,44 +232,50 @@ def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
     phrase records and their lexicographic ranks on the host. Phrase
     coordinates are int32, so ext ([2] + text + [2]*w) must stay below
     2^31 bytes: a longer text raises ScanSizeError before anything is
-    copied."""
+    copied. Its parts are the spans pfp.build.text, pfp.alphabet,
+    pfp.build.breaks, pfp.build.records and pfp.build.sort."""
     n_text = int(text_np.size)
     if n_text + w + 1 >= 2**31:
         raise ScanSizeError(
             f"a text of {n_text} characters does not fit the int32 phrase "
             f"coordinates (at most 2^31 - {w + 2} with w = {w}); partition "
             "the collection (MumemtoM)")
-    ext_np = np.concatenate([
-        np.full(1, DOLLAR_PFP, np.uint8), text_np,
-        np.full(w, DOLLAR_PFP, np.uint8)])
-    ne = bucket(ext_np.size)
-    ext_pad = np.zeros(ne, np.uint8)
-    ext_pad[:ext_np.size] = ext_np
-    ext = torch.from_numpy(ext_pad).to(device)
+    with trace.span("pfp.build.text"):
+        ext_np = np.concatenate([
+            np.full(1, DOLLAR_PFP, np.uint8), text_np,
+            np.full(w, DOLLAR_PFP, np.uint8)])
+        ne = bucket(ext_np.size)
+        ext_pad = np.zeros(ne, np.uint8)
+        ext_pad[:ext_np.size] = ext_np
+        ext = torch.from_numpy(ext_pad).to(device)
     alpha = _alphabet(ext_np)
 
-    breaks = compute_breaks(ext, n_text, w, mod)
-    k = breaks.size
-    m = k + 1
-    st = np.empty(m, np.int32)
-    en = np.empty(m, np.int32)
-    st[0] = 0
-    if k:
-        st[1:] = breaks - w + 2
-        en[:-1] = breaks + 1
-    en[-1] = n_text + w
-    ln = en - st + 1
+    with trace.span("pfp.build.breaks"):
+        breaks = compute_breaks(ext, n_text, w, mod)
+    with trace.span("pfp.build.records"):
+        k = breaks.size
+        m = k + 1
+        st = np.empty(m, np.int32)
+        en = np.empty(m, np.int32)
+        st[0] = 0
+        if k:
+            st[1:] = breaks - w + 2
+            en[:-1] = breaks + 1
+        en[-1] = n_text + w
+        ln = en - st + 1
 
-    order, grp = sort_phrases(ext_pad, st, ln)
-    num_phrases = int(grp[-1]) + 1 if order.size else 0
-    first = np.concatenate([[True], grp[1:] != grp[:-1]])
-    rep = order[first]
-    phrase_st = np.zeros(num_phrases + 1, np.int32)
-    phrase_ln = np.zeros(num_phrases + 1, np.int32)
-    phrase_st[1:] = st[rep]
-    phrase_ln[1:] = ln[rep]
-    parse = np.zeros(m, np.int32)
-    parse[order] = grp + 1
+    with trace.span("pfp.build.sort"):
+        order, grp = sort_phrases(ext_pad, st, ln)
+    with trace.span("pfp.build.records"):
+        num_phrases = int(grp[-1]) + 1 if order.size else 0
+        first = np.concatenate([[True], grp[1:] != grp[:-1]])
+        rep = order[first]
+        phrase_st = np.zeros(num_phrases + 1, np.int32)
+        phrase_ln = np.zeros(num_phrases + 1, np.int32)
+        phrase_st[1:] = st[rep]
+        phrase_ln[1:] = ln[rep]
+        parse = np.zeros(m, np.int32)
+        parse[order] = grp + 1
     return PFPData(w=w, n_text=n_text, m=m, num_phrases=num_phrases,
                    d_len=int(phrase_ln.sum()) + num_phrases + 1,
                    ext=ext, parse=parse, phrase_st=phrase_st,
@@ -343,6 +355,7 @@ def _dict_groups(d, saD, lcpD, pos_meta, nd: int, w: int):
     new_group = valid & ~same
     grp_of_row = torch.cumsum(new_group.to(I32), 0, dtype=I32) - 1
     grp_cross = torch.zeros(nd, dtype=I32, device=dev)
+    trace.count(trace.READBACKS, 2)  # two mask indexes
     grp_cross[grp_of_row[new_group]] = gapmin[new_group]
     grp_cross[0] = 0
     grp_of_pos = ops_suffix.route_set(saD, torch.where(valid, grp_of_row, -1))
@@ -486,6 +499,7 @@ def _expand_operands(parse, d_starts, cumcnt, m: int, total_rows: int,
     pid_tab = parse[:mp1 - 1]
     keep = starts_idx < nr
     nxt = torch.zeros(nr, dtype=I32, device=dev)
+    trace.count(trace.READBACKS, 2)
     nxt.scatter_reduce_(0, starts_idx[keep].to(I64), cumcnt[1:][keep],
                         reduce="amax", include_self=True)
     next_start = torch.cummax(nxt, 0).values
@@ -597,30 +611,32 @@ def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
     takes the rank descent and has no probe. max_nr: refuse a row bucket
     of max_nr or more with ScanSizeError, before the dict index."""
     phase = phase or _noop_phase
-    h = _host_prep(pfp, doc_ends)
-    if max_nr is not None and h["nr"] >= max_nr:
-        raise ScanSizeError(
-            f"row spaces past 2^31 need the block (wide) scan: "
-            f"{h['total_rows']} rows (bucket {h['nr']}) do not fit one "
-            "device's int32 row arrays; shard the scan (--seq-shards N) "
-            "or partition the collection (MumemtoM)")
-    if dict_devices is not None:
-        from mumemto_tpu_torch.parallel import sharddict
-        fn = sharddict.compile_sharded_dict_index(
-            dict_devices, h["nd"], h["ne"], h["w"], h["lvl_cap"],
-            h["lvl_static"], h["seed_thr"], h["lcp_thr"])
-        d, lcpD, isaD, grp_of_pos, grp_cross = fn(
-            pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
-            h["npz"], h["total_real"])
-    else:
-        d, lcpD, isaD, grp_of_pos, grp_cross = _dict_index(
-            pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
-            h["npz"], h["total_real"], h["nd"], h["ne"], h["w"],
-            h["lvl_cap"], h["lvl_static"], h["seed_thr"], h["lcp_thr"],
-            probe_words=probe_words)
+    with trace.span("pfp.dict_index"):
+        h = _host_prep(pfp, doc_ends)
+        if max_nr is not None and h["nr"] >= max_nr:
+            raise ScanSizeError(
+                f"row spaces past 2^31 need the block (wide) scan: "
+                f"{h['total_rows']} rows (bucket {h['nr']}) do not fit one "
+                "device's int32 row arrays; shard the scan (--seq-shards N) "
+                "or partition the collection (MumemtoM)")
+        if dict_devices is not None:
+            from mumemto_tpu_torch.parallel import sharddict
+            fn = sharddict.compile_sharded_dict_index(
+                dict_devices, h["nd"], h["ne"], h["w"], h["lvl_cap"],
+                h["lvl_static"], h["seed_thr"], h["lcp_thr"])
+            d, lcpD, isaD, grp_of_pos, grp_cross = fn(
+                pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
+                h["npz"], h["total_real"])
+        else:
+            d, lcpD, isaD, grp_of_pos, grp_cross = _dict_index(
+                pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
+                h["npz"], h["total_real"], h["nd"], h["ne"], h["w"],
+                h["lvl_cap"], h["lvl_static"], h["seed_thr"], h["lcp_thr"],
+                probe_words=probe_words)
     phase("dict_index")
-    isaP, slt_table = _parse_side(h["parse"], h["cumC"], h["d_starts"],
-                                  lcpD, isaD, h["mp"])
+    with trace.span("pfp.parse_side"):
+        isaP, slt_table = _parse_side(h["parse"], h["cumC"], h["d_starts"],
+                                      lcpD, isaD, h["mp"])
     phase("parse_side")
     h.update({"isaP": isaP, "grp_of_pos": grp_of_pos, "d": d,
               "slt_table": slt_table, "grp_cross": grp_cross})
@@ -636,12 +652,13 @@ def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
     phase = phase or _noop_phase
     h = pfp_scan_prepare(pfp, doc_ends, probe_words=probe_words,
                          phase=phase, max_nr=ROW_LIMIT)
-    res, counts = _expand_and_analyze(
-        h["parse"], h["d_starts"], h["cumcnt"], h["m"], h["total_rows"],
-        h["n_text"], h["isaP"], h["grp_of_pos"], h["d"], h["slt_table"],
-        h["grp_cross"], h["doc_ends"], h["nr"], h["nd"], h["w"], num_docs,
-        min_match_len, num_distinct, max_total_freq, max_doc_freq, size_cap,
-        need_ctx)
+    with trace.span("pfp.expand_sort_analyze"):
+        res, counts = _expand_and_analyze(
+            h["parse"], h["d_starts"], h["cumcnt"], h["m"],
+            h["total_rows"], h["n_text"], h["isaP"], h["grp_of_pos"], h["d"],
+            h["slt_table"], h["grp_cross"], h["doc_ends"], h["nr"], h["nd"],
+            h["w"], num_docs, min_match_len, num_distinct, max_total_freq,
+            max_doc_freq, size_cap, need_ctx)
     phase("expand_sort_analyze")
     return res, counts, h["nr"]
 
@@ -655,7 +672,8 @@ def scan_collection_pfp(text_np: np.ndarray, doc_ends: np.ndarray,
     """Parse + scan one collection on `device`; returns (res, counts, nr).
     need_ctx adds the merge contexts (prev_ctx, next_ctx) to res."""
     phase = phase or _noop_phase
-    pfp = build_pfp(text_np, device, w=w, mod=mod)
+    with trace.span("pfp.build"):
+        pfp = build_pfp(text_np, device, w=w, mod=mod)
     phase("build_pfp")
     return pfp_scan(pfp, doc_ends, num_docs, min_match_len, num_distinct,
                     max_total_freq, max_doc_freq, size_cap=size_cap,

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from mumemto_tpu_torch import trace
+
 I32 = torch.int32
 I64 = torch.int64
 
@@ -123,8 +125,10 @@ def _suffix_array_impl(text: torch.Tensor, n: int, packed_init: bool = False,
         rank, sa, last = _round(rank, key2, n)
         hist[lvl] = rank
         lvl += 1
-        if max_lvl is None and int(last) == n - 1:
-            break
+        if max_lvl is None:
+            trace.count(trace.READBACKS)
+            if int(last) == n - 1:
+                break
     return sa, hist, (L + 1 if max_lvl is not None else lvl)
 
 
@@ -259,6 +263,7 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
             nc += ((wa >> s) == (wb >> s)).to(I32)
         return torch.where(inb, h + nc, h)
 
+    trace.count(trace.READBACKS)
     n_deep = int(deep.sum())
     if stats is not None:
         stats.update(n_deep=n_deep, deep_cap=deep_cap,
@@ -267,6 +272,7 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
         lcp = descend(prev_sa, sa, n)
         lcp[0] = 0
         return lcp, isa
+    trace.count(trace.READBACKS)
     p = torch.nonzero(deep).flatten()
     plcp0 = probe.clone()
     plcp0[p] = descend(p.to(I32), phi[p], p.numel())
@@ -300,8 +306,10 @@ def suffix_lcp_arrays(text: torch.Tensor):
     bwt[j] = text[(sa[j] - 1) mod n] (direct_gsacak.hpp:64-67). The packed
     seed needs every char < 127 and >= 4 trailing zero-pad chars."""
     n = int(text.shape[0])
-    if n and int(text.max()) >= 127:
-        raise ValueError("the packed SA seed needs every char < 127")
+    if n:
+        trace.count(trace.READBACKS)
+        if int(text.max()) >= 127:
+            raise ValueError("the packed SA seed needs every char < 127")
     sa, hist, num_lvl = _suffix_array_impl(text, n, packed_init=True)
     lcp = _lcp_impl(sa, hist, num_lvl, n, levels=num_lvl)
     return sa, lcp, bwt_of(text, sa)
