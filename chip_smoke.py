@@ -16,6 +16,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (mask and count exactly equal) over w, mod, ne, all-255 bytes and
      misaligned views, with CUDA-event timings on the 8 and 32 Mbp ext
      arrays beside the memory bound (share of it, bytes per second);
+ 4b. the running max / min kernel (phase_scan) against its plain version
+     (torch.cummax / cummin) at 2^26 and 2^28 int32 and 2^27 int64, both
+     ops, forward and reverse, 0 mismatches; CUDA-event times of the
+     kernel, the plain version and torch.cummax(x, 0) beside the bytes
+     bound; and its launches in one call of the PFP path (MUM mode and -f
+     3) and of -g on the 8 Mbp bench collection;
   5. the main path end to end on the bench input (_synth_collection,
      8 docs, 0.1% SNP, revcomp, strict multi-MUMs) at 8 and 32 Mbp: stage
      times, Mbp/s, peak device memory, and the match count against a live
@@ -128,7 +134,9 @@ of 5 Mbp at 0.1% SNPs as dcn ranks.
 Every path of phases 5-8 and 10-15 is driven with the kernels' launch counts
 set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
-and -a must have launched none. The
+and -a must have launched none; every PFP path, -g, -p, -A, -a, the
+sharded scans and merge --collective must have launched the running max /
+min kernel. The
 line before the last is the kernels' JSON record, the last line is
 {"ok": true, "device": {...}}. Everything is also written to
 chiprun_out/chip_smoke.json. Imports nothing of JAX and nothing of the
@@ -166,8 +174,10 @@ from mumemto_tpu_torch.bench import (  # noqa: E402
     trace_cards as _trace_cards, triple as _triple,
     write_fastas as _write_fastas)
 
+LAUNCH_KEYS = ("kr_break_mask", "add_one", "running_scan")  # bench.counted's
 KR_SOURCE = "mumemto_tpu_torch/kernels/csrc/kr_mask.cu"
 KR_REPLACES = "mumemto_tpu/ops/pallas_kernels.py:103"
+SCAN_SOURCE = "mumemto_tpu_torch/kernels/csrc/scan.cu"
 PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
 PROBE_REPLACES = "tools/mosaic_probe.py:25"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the data sheet's peak)
@@ -408,15 +418,16 @@ def _host_split(torch, probe, tile, reps: int = 10000) -> dict:
 
 
 def phase_build(report):
-    """Every kernel source of the port, one nvcc each, started together."""
-    from concurrent.futures import ThreadPoolExecutor
-    from mumemto_tpu_torch.kernels import build, kr_mask, probe
+    """Every kernel source of the port, one nvcc each, started together
+    (the first build.build of a stale source builds them all)."""
+    from mumemto_tpu_torch.kernels import build, kr_mask, probe, scan
     names = sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(build.build, names))
+    for name in names:
+        build.build(name)
     kr_mask.launcher()
     probe._kernel()
+    scan.launcher()
     report["build_s"] = time.perf_counter() - t0
     report["kernel_sources"] = names
     log(f"[build] {', '.join(names)} built and loaded in "
@@ -549,16 +560,122 @@ def phase_kernel(torch, report):
     report["kernel_timings"] = timings
 
 
+def _blocked_scan(torch, x, op, tile=4096):
+    """The running max (op "max") or min of a 1-D x in plain PyTorch over
+    a (rows, tile) view: torch.cummax / cummin along each row (a block for
+    every 32 rows), the same over the rows' last values, then each row
+    combined with the rows before it. The simpler design that phase_scan
+    times the kernel against."""
+    fn = {"max": torch.cummax, "min": torch.cummin}[op]
+    info = torch.iinfo(x.dtype)
+    ident = info.min if op == "max" else info.max
+    n = x.numel()
+    rows = -(-n // tile)
+    if n % tile:
+        x = torch.cat([x, x.new_full((rows * tile - n,), ident)])
+    inner = fn(x.view(rows, tile), 1).values
+    carry = fn(inner[:, -1].contiguous(), 0).values
+    before = torch.cat([carry.new_full((1,), ident), carry[:-1]])
+    both = {"max": torch.maximum, "min": torch.minimum}[op]
+    return both(inner, before[:, None]).view(-1)[:n]
+
+
+def phase_scan(torch, report):
+    """The running max / min kernel against its plain version on the card
+    (exactly equal), its CUDA-event times beside the plain version's, the
+    library call torch.cummax(x, 0)'s (the port calls it nowhere), a
+    blocked plain PyTorch scan's (_blocked_scan) and the bound (each
+    element read once and written once over HBM_BYTES_PER_S), then its
+    launches in one call of each main-path route at 8 Mbp."""
+    from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.kernels import scan
+    dev = torch.device("cuda")
+    fns = {"max": scan.running_max, "min": scan.running_min}
+    shapes = [("2^26 int32", 1 << 26, torch.int32),
+              ("2^28 int32", 1 << 28, torch.int32),
+              ("2^27 int64", 1 << 27, torch.int64)]
+    out = {"cases": {}, "max_abs_err": 0}
+    for label, n, dtype in shapes:
+        g = torch.Generator(device=dev).manual_seed(n)
+        hi = 2**31 - 1 if dtype == torch.int32 else 2**62
+        x = torch.randint(-hi, hi, (n,), dtype=dtype, device=dev, generator=g)
+        # sparse and dense runs of new maxima: where(mask, idx, -1) as the
+        # dictionary's group scan makes it
+        x[: n // 2] = torch.where(
+            torch.rand(n // 2, device=dev, generator=g) < 0.3,
+            torch.arange(n // 2, dtype=dtype, device=dev), -1)
+        for op in ("max", "min"):
+            for reverse in (False, True):
+                scan.launches = 0
+                got = fns[op](x, reverse=reverse)
+                torch.cuda.synchronize()
+                err = int((got != scan.running_plain(x, op, reverse)).sum())
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                if err or scan.launches != 1:
+                    raise AssertionError(
+                        f"running_{op} reverse={reverse} at {label}: "
+                        f"{err} mismatches, {scan.launches} launches")
+                del got
+        bound_ms = 2 * n * x.element_size() / HBM_BYTES_PER_S * 1e3
+        case = {"n": n, "dtype": str(dtype), "bound_ms": bound_ms,
+                "bound_by": "bytes"}
+        for op, reverse in (("max", False), ("min", True)):
+            t = _turns(torch, lambda: fns[op](x, reverse=reverse),
+                       lambda: scan.running_plain(x, op, reverse), 3, 3)
+            key = f"{op}{'_rev' if reverse else ''}"
+            case[key] = {**t, "share_of_bound": bound_ms / t["ms"],
+                         "gb_per_s": 2 * n * x.element_size() / t["ms"] / 1e6}
+        case["library_ms"] = statistics.median(
+            _event_ms(torch, lambda: torch.cummax(x, 0), 3) for _ in range(3))
+        blocked = int((_blocked_scan(torch, x, "max")
+                       != scan.running_max(x)).sum())
+        if blocked:
+            raise AssertionError(f"_blocked_scan at {label}: {blocked} "
+                                 "mismatches")
+        case["blocked_plain_ms"] = statistics.median(
+            _event_ms(torch, lambda: _blocked_scan(torch, x, "max"), 3)
+            for _ in range(3))
+        out["cases"][label] = case
+        f, r = case["max"], case["min_rev"]
+        log(f"[scan] {label}: running_max {f['ms']:.4f} ms "
+            f"({f['share_of_bound']:.1%} of the {bound_ms:.4f} ms bound, "
+            f"{f['gb_per_s']:.0f} GB/s), plain {f['plain_ms']:.2f} ms; "
+            f"running_min reverse {r['ms']:.4f} ms "
+            f"({r['share_of_bound']:.1%}), plain {r['plain_ms']:.2f} ms; "
+            f"torch.cummax(x, 0) {case['library_ms']:.2f} ms; blocked plain "
+            f"{case['blocked_plain_ms']:.4f} ms; 0 mismatches")
+        del x
+        torch.cuda.empty_cache()
+    rb = _bench_rb(8)
+    out["launches_per_call"] = {}
+    for label, kw, backend in (("pfp", {}, "pfp"),
+                               ("pfp -f 3", {"rare_freq": 3}, "pfp"),
+                               ("-g", {}, "direct")):
+        opts = options.normalize(rb.num_docs, quiet=True, **kw)
+        engine.find_matches(rb, opts, device=dev, backend=backend,
+                            show_progress=False)
+        scan.launches = 0
+        engine.find_matches(rb, opts, device=dev, backend=backend,
+                            show_progress=False)
+        torch.cuda.synchronize()
+        out["launches_per_call"][label] = scan.launches
+        if scan.launches == 0:
+            raise AssertionError(f"{label} launched no running_scan")
+    log(f"[scan] launches a call at 8 Mbp: "
+        f"{json.dumps(out['launches_per_call'])}")
+    report["scan"] = out
+
+
 def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     """One path end to end on the card: a cold and a warm find_matches with
     the kernels' launch counts set to 0 just before and read just after,
     then a live native/baseline_cpu run with the same options. The match
     count must equal the baseline's and be above 0. The PFP backend must
-    have launched the KR kernel in both runs, the direct backend never.
+    have launched the KR kernel in both runs, the direct backend never;
+    both must have launched the running max / min kernel.
     Returns (record, warm result)."""
     from mumemto_tpu_torch import engine
-    from mumemto_tpu_torch.kernels import kr_mask, probe
-    kr_mask.launches = probe.launches = 0
+    bench.reset_launches()
     t0 = time.perf_counter()
     cold = engine.find_matches(rb, opts, device="cuda", backend=backend)
     torch.cuda.synchronize()
@@ -570,13 +687,14 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
                               backend=backend)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {"kr_break_mask": kr_mask.launches, "add_one": probe.launches}
+    launches = bench.launch_counts()
     if backend == "pfp" and launches["kr_break_mask"] < 2:
         raise AssertionError(f"{label}: KR kernel launched "
                              f"{launches['kr_break_mask']} times in two runs")
-    if backend == "direct" and any(launches.values()):
+    if backend == "direct" and any(_kr_of(launches).values()):
         raise AssertionError(f"{label}: the direct backend launched "
                              f"kernels: {launches}")
+    _scanned(label, launches)
     if res.output_bytes() != cold.output_bytes():
         raise AssertionError(f"{label}: two runs disagree")
     base_mbp_s, base_matches = _run_cpu_baseline(rb.text, rb.seq_lengths,
@@ -729,7 +847,9 @@ def phase_routes(torch, report, pfp_mums: bytes):
     """The other single-device entry routes on the 8 Mbp bench input, each
     against the PFP path's .mums bytes (pfp_mums): -g (the direct backend,
     against a live baseline_cpu run as well), -P then -p, -A then -a. -P
-    and -A must launch the KR kernel; -g, -p and -a launch no kernel."""
+    and -A must launch the KR kernel, -g, -p and -a must not; every route
+    but -P (which scans nothing) must launch the running max / min
+    kernel."""
     import tempfile
     import numpy as np
     from mumemto_tpu_torch import formats, options
@@ -789,8 +909,10 @@ def phase_routes(torch, report, pfp_mums: bytes):
     if l_P["kr_break_mask"] < 1 or l_A["kr_break_mask"] < 1:
         raise AssertionError(f"-P/-A did not launch the KR kernel: {l_P} "
                              f"{l_A}")
-    if any(l_p.values()) or any(l_a.values()):
+    if any(_kr_of(l_p).values()) or any(_kr_of(l_a).values()):
         raise AssertionError(f"-p/-a launched kernels: {l_p} {l_a}")
+    for label, launches in (("-p", l_p), ("-A", l_A), ("-a", l_a)):
+        _scanned(label, launches)
     for label, r in (("-p", res_p), ("-A", res_A), ("-a", res_a)):
         if r.output_bytes() != pfp_mums:
             raise AssertionError(f"{label} 8 Mbp: .mums != the PFP path's")
@@ -881,10 +1003,24 @@ def phase_bytes(torch, report):
 
 
 def _kr_used(label, launches):
-    """A path of the slice must have launched the KR kernel, and nothing
-    of it the probe kernel."""
+    """A path of the slice must have launched the KR kernel and the
+    running max / min kernel, and nothing of it the probe kernel."""
     if launches["kr_break_mask"] < 1 or launches["add_one"]:
         raise AssertionError(f"{label}: kernel launches {launches}")
+    _scanned(label, launches)
+
+
+def _kr_of(launches) -> dict:
+    """The KR and probe kernels' part of a path's launch counts (the
+    running max / min kernel's count varies with the route: _scanned)."""
+    return {k: launches[k] for k in ("kr_break_mask", "add_one")}
+
+
+def _scanned(label, launches):
+    """A path that scans on the card must have launched the running max /
+    min kernel."""
+    if launches["running_scan"] < 1:
+        raise AssertionError(f"{label}: no running_scan launch: {launches}")
 
 
 def _mums_set(path, num_docs, order=None):
@@ -1112,7 +1248,8 @@ def _drive_sharded(torch, label, rb, opts, nshards, want_bytes, M,
     warm find_matches_seq_sharded (with the dictionary index sharded too
     when shard_dict), each with the kernels' launch counts
     set to 0 just before and read just after (each must launch the KR
-    kernel exactly once and the probe kernel never), the warm one under a
+    kernel exactly once, the running max / min kernel at least once and
+    the probe kernel never), the warm one under a
     per-stage timer and a fresh peak-memory counter. The output bytes of
     both runs must equal want_bytes. Returns (record, warm result)."""
     from mumemto_tpu_torch.parallel import mesh, seqpfp
@@ -1136,9 +1273,10 @@ def _drive_sharded(torch, label, rb, opts, nshards, want_bytes, M,
                  res.output_bytes() == want_bytes == cold.output_bytes()}
     log(f"[sharded] {label}: {json.dumps(entry)}")
     for launches in (l_cold, l_warm):
-        if launches != {"kr_break_mask": 1, "add_one": 0}:
+        if _kr_of(launches) != {"kr_break_mask": 1, "add_one": 0}:
             raise AssertionError(f"{label}: kernel launches {launches}, "
                                  "expected exactly 1 KR launch")
+        _scanned(label, launches)
     if not entry["bytes_equal_single_device"]:
         raise AssertionError(f"{label}: bytes != the single-device run's")
     return entry, res
@@ -1304,6 +1442,7 @@ def phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work):
         f"{json.dumps(out['cli --seq-shards 4'])}")
     if rc != 0 or not same or lc["kr_break_mask"] != 1:
         raise AssertionError("cli --seq-shards 4: .mums != the union run's")
+    _scanned("cli --seq-shards 4", lc)
     out["paths"]["cli --seq-shards 4"] = lc
 
     # merge --collective on phase 10's anchor partitions (5 + 4 docs)
@@ -1322,8 +1461,10 @@ def phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work):
         sizes[ext] = len(ga)
         if ext == ".mums":
             merged_mums = ga.count(b"\n")
-    if any(lm.values()):
+    if any(_kr_of(lm).values()):
         raise AssertionError(f"merge --collective launched kernels: {lm}")
+    _scanned("merge --collective", lm)
+    out["paths"]["merge --collective"] = lm
     # the fold alone, on the card, at these partitions' n_anchor
     cands = [merge_mod.parse_candidate(p) for p in parts]
     n_anchor = int(cands[0][4].size)
@@ -1569,7 +1710,7 @@ def _partition_mesh(torch, out):
         raise AssertionError("M = 4 raised no WindowCapacityError")
     for what, got_l in (("match program", launches), ("step", l_step),
                         ("one-collection scan", l_scan)):
-        if any(got_l.values()):
+        if any(_kr_of(got_l).values()):
             raise AssertionError(f"partition {what} launched kernels: "
                                  f"{got_l}")
     out["partition mesh"] = {
@@ -1579,6 +1720,7 @@ def _partition_mesh(torch, out):
         "longest": longest.cpu().tolist(), "total": int(total),
         "matches_s": s, "step_s": step_s, "sharded_scan_s": scan_s,
         "peak_alloc_bytes": peak, "launches": launches, "refused": refused}
+    out["paths"]["partition mesh"] = launches
     log(f"[partition] {json.dumps(out['partition mesh'])}")
 
 
@@ -1589,6 +1731,7 @@ sys.path.insert(0, sys.argv[5])
 import torch
 import chip_smoke
 from mumemto_tpu_torch.kernels import kr_mask, probe
+from mumemto_tpu_torch.kernels import scan as scan_kernel
 from mumemto_tpu_torch.parallel import dcn, mumemtom
 rank, port, prefix = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 files = open(sys.argv[4]).read().split()
@@ -1622,7 +1765,7 @@ def break_mask(ext, *a):
     return real_kr(ext, *a)
 mumemtom.scan_partition = scan
 kr_mask.break_mask = break_mask
-kr_mask.launches = probe.launches = 0
+kr_mask.launches = probe.launches = scan_kernel.launches = 0
 dcn.initialize("127.0.0.1:" + port, nproc, rank)
 t1 = time.perf_counter()
 dcn.run_partitioned_dcn(files, prefix, anchor=True, num_partitions=nparts,
@@ -1633,7 +1776,8 @@ assert not bad, bad
 print("DCN_WORKER " + json.dumps({
     "rank": rank, "device": device, "scanned": scanned, "partitions": parts,
     "kr_break_mask": kr_mask.launches, "kr_devices": kr_devices,
-    "add_one": probe.launches, "start_s": t1 - t0,
+    "add_one": probe.launches, "running_scan": scan_kernel.launches,
+    "start_s": t1 - t0,
     "run_s": time.perf_counter() - t1,
     "peak_alloc_bytes":
         torch.cuda.max_memory_allocated(device) if card else 0}))
@@ -1716,7 +1860,8 @@ def _dcn_run(label, worker, prefix, filelist, collective, env, devices,
             devices[rank] + ":0"
         want_kr = [card] * len(mine) if card.startswith("cuda") else []
         if rec["scanned"] != mine or rec["kr_devices"] != want_kr or \
-                rec["kr_break_mask"] != len(want_kr) or rec["add_one"]:
+                rec["kr_break_mask"] != len(want_kr) or rec["add_one"] or \
+                (rec["running_scan"] > 0) != bool(want_kr):
             raise AssertionError(f"{label}: rank {rank} on "
                                  f"{devices[rank]} reports {rec}")
         ranks.append(rec)
@@ -1751,9 +1896,8 @@ def _dcn_pairs(torch, out, work, anchor_s):
         out["dcn"][label] = {"wall_s": wall, "ranks": ranks, "sizes": sizes}
         log(f"[dcn] {label}: pair {wall:.3f} s beside {anchor_s:.3f} s in "
             f"one process; {json.dumps(out['dcn'][label])}")
-        out["paths"][label] = {
-            "kr_break_mask": sum(r["kr_break_mask"] for r in ranks),
-            "add_one": sum(r["add_one"] for r in ranks)}
+        out["paths"][label] = {k: sum(r[k] for r in ranks)
+                               for k in LAUNCH_KEYS}
     _dcn_four(torch, out, work, fastas)
 
 
@@ -1778,7 +1922,7 @@ def _dcn_four(torch, out, work, fastas):
     log(f"[dcn] {label}: {wall:.3f} s beside {s:.3f} s in one process; "
         f"{json.dumps(out['dcn'][label])}")
     out["paths"][label] = {k: sum(r[k] for r in ranks)
-                           for k in ("kr_break_mask", "add_one")}
+                           for k in LAUNCH_KEYS}
 
 
 def phase_modules(torch, report, res_8mbp, res_f3, mums_32mbp, work):
@@ -1869,7 +2013,7 @@ def _real_row(torch, tag, label, rb, opts, mbp, acgt, variant):
     if len(spy.sizes) != 2 or spy.sizes[0] != spy.sizes[1]:
         raise AssertionError(f"{label}: two runs prepared {spy.sizes}")
     entry.update(spy.sizes[0])
-    if entry["launches"] != {"kr_break_mask": 2, "add_one": 0}:
+    if _kr_of(entry["launches"]) != {"kr_break_mask": 2, "add_one": 0}:
         raise AssertionError(f"{label}: kernel launches {entry['launches']} "
                              "in two runs, expected 1 KR launch a run")
     got = (entry["seed_thr_is_none"], entry["lcp_thr_is_none"])
@@ -1976,9 +2120,10 @@ def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
             row_e["acgt"] = {k: acgt_g[k] for k in (
                 "wall_s", "matches", "peak_alloc_bytes", "index")}
         log(f"[real] {key}: {json.dumps(row_e)}")
-        if not row_e["bytes_equal_pfp_row"] or any(lg.values()):
+        if not row_e["bytes_equal_pfp_row"] or any(_kr_of(lg).values()):
             raise AssertionError(f"{label}: bytes != the PFP row's, or "
                                  f"kernels launched: {lg}")
+        _scanned(label, lg)
         if (row_e["index"]["lcp"] == "descent") != (alpha == "IUPAC"):
             raise AssertionError(f"{label}: the index took the "
                                  f"{row_e['index']['lcp']} LCP")
@@ -2058,7 +2203,8 @@ def phase_bench(torch, report, argv=BENCH_ARGV):
                                  f"baseline {rec['baseline']}")
         out["records"][rec["config"]] = rec
         out["paths"][f"bench {rec['config']}"] = {
-            "kr_break_mask": rec["kr_launches"] * rec["calls"], "add_one": 0}
+            "kr_break_mask": rec["kr_launches"] * rec["calls"], "add_one": 0,
+            "running_scan": rec["scan_launches"]}
     report["bench"] = out
 
 
@@ -2116,9 +2262,12 @@ def _scale_runs(torch, label, run, mbp, split=None):
                 del res
     if len(spy.sizes) != 2 or spy.sizes[0] != spy.sizes[1]:
         raise AssertionError(f"{label}: two runs prepared {spy.sizes}")
-    if any(lc != {"kr_break_mask": 1, "add_one": 0} for lc in launches):
+    if any(_kr_of(lc) != {"kr_break_mask": 1, "add_one": 0}
+           for lc in launches):
         raise AssertionError(f"{label}: kernel launches {launches}, "
                              "expected 1 KR launch a run")
+    for lc in launches:
+        _scanned(label, lc)
     stage_peaks = {k: v[0] for k, v in timer.stage_peaks.items()}
     entry = {"label": label, "mbp": mbp, "wall_s": walls[-1],
              "walls_s": walls, "mbp_per_s": mbp / walls[-1],
@@ -2172,9 +2321,8 @@ def _refused(torch, tag, label, rb, opts):
     limit: the caller moves to the next size)."""
     import re
     from mumemto_tpu_torch import engine
-    from mumemto_tpu_torch.kernels import kr_mask, probe
     with _PrepSpy() as spy:
-        kr_mask.launches = probe.launches = 0
+        bench.reset_launches()
         t0 = time.perf_counter()
         try:
             res = engine.find_matches(rb, opts, device="cuda")
@@ -2185,12 +2333,12 @@ def _refused(torch, tag, label, rb, opts):
             del res
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-    launches = {"kr_break_mask": kr_mask.launches, "add_one": probe.launches}
+    launches = bench.launch_counts()
     entry = {"label": label, "num_docs": rb.num_docs,
              "text_chars": int(rb.text.size), "s": s, "launches": launches,
              **spy.sizes[0], **_flat_sizes(spy), "refused": err is not None,
              "error": err}
-    if launches != {"kr_break_mask": 1, "add_one": 0}:
+    if _kr_of(launches) != {"kr_break_mask": 1, "add_one": 0}:
         raise AssertionError(f"{label}: kernel launches {launches}")
     if err is None:
         entry["matches"] = matches
@@ -2313,7 +2461,8 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
                  "terminal_touching_differences": len(terminal)}
         log(f"[scale] d: {json.dumps(row_d)}")
         if len(terminal) != len(diff) or [p["kr_launches"] for p in parts] \
-                != [1, 1] or lp != {"kr_break_mask": 2, "add_one": 0}:
+                != [1, 1] or _kr_of(lp) != {"kr_break_mask": 2, "add_one": 0} \
+                or not lp["running_scan"]:
             raise AssertionError(f"MumemtoM at {n_big} docs: "
                                  f"{len(diff) - len(terminal)} MUMs differ "
                                  "from the union's away from the "
@@ -2335,7 +2484,7 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
         out["paths"][out["rows"][key]["label"]] = out["rows"][key]["launches"]
     out["paths"][out["rows"]["d"]["label"]] = lp
     out["paths"][out["rows"]["d2"]["label"]] = {
-        k: sum(r[k] for r in ranks) for k in ("kr_break_mask", "add_one")}
+        k: sum(r[k] for r in ranks) for k in LAUNCH_KEYS}
 
     # k: the KR kernel on row c's ext against its plain version
     ext = torch.from_numpy(_ext_of(rb_c.text, 10)).to(engine.resolve("cuda"))
@@ -2547,8 +2696,9 @@ def _cards_m1(torch, out, work, docs, doc_mbp, devices):
                 device="cuda"))
     finally:
         mumemtom.scan_partition = real
-    if ls != {"kr_break_mask": nparts, "add_one": 0}:
+    if _kr_of(ls) != {"kr_break_mask": nparts, "add_one": 0}:
         raise AssertionError(f"m1: one-process MumemtoM launches {ls}")
+    _scanned("m1: one-process MumemtoM", ls)
     split = mumemtom.auto_partition(fastas, nparts, anchor=True)
     order = _order_of(fastas, split)
     torch.cuda.empty_cache()
@@ -2788,9 +2938,10 @@ def _cards_sharded(torch, out, inputs, shards, tmp, one_card=False,
                 f"{_gib(single['peak_alloc_bytes'])}, shard matches "
                 f"{cap.counts[0]} (M = 4096 refuses: {worst > 4096}); "
                 + ", ".join(f"{k} {v:.3f}" for k, v in timer.stages.items()))
-            if not same or lc != {"kr_break_mask": 1, "add_one": 0}:
+            if not same or _kr_of(lc) != {"kr_break_mask": 1, "add_one": 0}:
                 raise AssertionError(f"s {label}, {n} shards: bytes equal "
                                      f"{same}, launches {lc}")
+            _scanned(f"s {label}, {n} shards", lc)
         if trace is None or trace_all:
             n = shards[0]
             devs = mesh.seq_devices(n, "cuda")
@@ -2850,9 +3001,11 @@ def _cards_collective(torch, out, m1):
         with open(coll + ext, "rb") as a, open(host + ext, "rb") as b, \
                 open(m1["single"] + ext, "rb") as c:
             ga, gb, gc = a.read(), b.read(), c.read()
-        if rc or rc_h or ga != gb or gb != gc or not ga or any(lm.values()):
+        if rc or rc_h or ga != gb or gb != gc or not ga or \
+                any(_kr_of(lm).values()):
             raise AssertionError(f"c: {ext} of merge --collective != the "
                                  f"host merge's (rc {rc}, {rc_h}; {lm})")
+    _scanned("c: merge --collective", lm)
     cands = [merge_mod.parse_candidate(p) for p in parts]
     dense = collective_merge._dense_arrays(cands, seen[0]["n_anchor"])
     dev0 = torch.device(seen[0]["devices"][0])
@@ -2927,7 +3080,7 @@ def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2,
             got, s, launches = _counted(torch, lambda: fn(texts, doc_ends))
             walls.append(s)
             peaks.append(_card_peaks(torch))
-            if any(launches.values()):
+            if any(_kr_of(launches).values()):
                 raise AssertionError(f"p: the partition program launched "
                                      f"{launches}")
     finally:
@@ -3217,8 +3370,9 @@ def _wide_scan(torch, label, rb, opts, nshards, M, cards):
         f"nd {rec['nd']} x {rec['dict_levels']} levels "
         f"({rec['dict_flat_share']:.1%} of 2^31); "
         + ", ".join(f"{k} {v:.3f}" for k, v in rec["stages_s"].items()))
-    if lc != {"kr_break_mask": 1, "add_one": 0}:
+    if _kr_of(lc) != {"kr_break_mask": 1, "add_one": 0}:
         raise AssertionError(f"{label}: kernel launches {lc}")
+    _scanned(label, lc)
     return rec, res
 
 
@@ -3611,6 +3765,7 @@ def main() -> int:
     phase_probe(torch, report)
     phase_build(report)
     phase_kernel(torch, report)
+    phase_scan(torch, report)
     res_8mbp, mums_32mbp = phase_end_to_end(torch, report)
     res_f3 = phase_mem(torch, report)
     phase_walk(torch, report)
@@ -3653,6 +3808,16 @@ def main() -> int:
         "max_abs_err": report["kernel_max_abs_err"], "ms": t8["ms"],
         "plain_ms": t8["plain_ms"], "bound_ms": t8["bound_ms"],
         "bound_by": t8["bound_by"], "library_ms": None}, {
+        "name": "running_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": None,
+        "launches": sum(v["running_scan"]
+                        for v in report["path_launches"].values()),
+        "max_abs_err": report["scan"]["max_abs_err"],
+        "ms": report["scan"]["cases"]["2^28 int32"]["max"]["ms"],
+        "plain_ms": report["scan"]["cases"]["2^28 int32"]["max"]["plain_ms"],
+        "bound_ms": report["scan"]["cases"]["2^28 int32"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": report["scan"]["cases"]["2^28 int32"]["library_ms"]}, {
         "name": "add_one", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": pr["launches"],
         "max_abs_err": pr["max_abs_err"], "ms": pr["ms"],

@@ -14,7 +14,8 @@ warm-up), `reps` timed calls, one call under the engine's stage hook and,
 on a card, one call under torch.profiler, and prints one JSON line on
 stdout: walls (median, best, max, spread), Mbp/s, the stage split, each
 card's peak allocation over the timed calls, the device's busy share, the
-KR kernel's launches per call, the count against the one on record and,
+KR kernel's launches per call, the running max / min kernel's launches
+over all calls, the count against the one on record and,
 where it ran, against a live native/baseline_cpu run on the same bytes
 (on by default below 100 Mbp). The last line has bench.py's keys for the
 first configuration: {"metric", "value" (Mbp/s of the best call), "unit",
@@ -352,13 +353,24 @@ class Split:
 def counted(torch, fn):
     """(fn(), seconds, launch counts) with the counts set to 0 just before
     fn and read just after."""
-    from mumemto_tpu_torch.kernels import kr_mask, probe
-    kr_mask.launches = probe.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = fn()
     sync_all(torch)
-    return out, time.perf_counter() - t0, {"kr_break_mask": kr_mask.launches,
-                                           "add_one": probe.launches}
+    return out, time.perf_counter() - t0, launch_counts()
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from mumemto_tpu_torch.kernels import kr_mask, probe, scan
+    kr_mask.launches = probe.launches = scan.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by the kernel's name."""
+    from mumemto_tpu_torch.kernels import kr_mask, probe, scan
+    return {"kr_break_mask": kr_mask.launches, "add_one": probe.launches,
+            "running_scan": scan.launches}
 
 
 def busy_overlap(spans) -> dict:
@@ -619,16 +631,18 @@ def run_config(torch, cfg, dev, args) -> dict:
         del docs
         log(f"[bench] {cfg.name}: {mbp:g} Mbp, {ndocs} docs, "
             f"{rb.text.size} chars, set up in {time.perf_counter() - t0:.1f} s")
-        n_calls = 0
+        n_calls = scans = 0
 
         def call(fn):
-            nonlocal n_calls
+            nonlocal n_calls, scans
             out, s, launches = counted(torch, fn)
             n_calls += 1
+            scans += launches["running_scan"]
             got = route.count(out)
-            if launches != {"kr_break_mask": per_call, "add_one": 0}:
+            if (launches["kr_break_mask"], launches["add_one"]) != \
+                    (per_call, 0):
                 _fail(cfg, f"kernel launches {launches} in one call, "
-                      f"expected {per_call} KR launches and no other")
+                      f"expected {per_call} KR launches and no add_one")
             if expected is not None and got != expected:
                 _fail(cfg, f"{got} matches, {expected} on record")
             return out, s, got
@@ -692,6 +706,7 @@ def run_config(torch, cfg, dev, args) -> dict:
             (got, spans), _s, launches = counted(
                 torch, lambda: trace_cards(torch, traced, work))
             n_calls += 1
+            scans += launches["running_scan"]
             if launches["kr_break_mask"] != per_call or got != matches:
                 _fail(cfg, f"the traced call: {got} matches, launches "
                       f"{launches}")
@@ -730,7 +745,8 @@ def run_config(torch, cfg, dev, args) -> dict:
         "mbp_per_s": mbp / median, "best_mbp_per_s": mbp / best,
         "stages_s": timer.stages, "peak_gib": peaks,
         "busy_share": busy["busy_s"] / busy["traced_s"] if busy else None,
-        "busy": busy, "kr_launches": per_call, "calls": n_calls,
+        "busy": busy, "kr_launches": per_call,
+        "scan_launches": scans, "calls": n_calls,
         "matches": matches, "expected": expected, "baseline": base,
         "vs_baseline": mbp / best / base["mbp_per_s"] if base else None}
     if calls_s is not None:

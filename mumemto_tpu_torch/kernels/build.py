@@ -17,6 +17,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -26,6 +27,7 @@ BUILD_DIR = os.path.join(HERE, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _loaded: dict = {}
+_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -43,22 +45,56 @@ def nvcc_path() -> str:
 def build(name: str, src: str | None = None) -> str:
     """Compile csrc/<name>.cu (or the source file `src`) into
     build/lib<name>.so unless the library is newer than its source; returns
-    the library path."""
+    the library path. When csrc/<name>.cu needs compiling, every other
+    csrc/*.cu whose library is missing or older is compiled beside it, one
+    nvcc each, all started together: a fresh checkout's first call waits
+    for the slowest source instead of each in turn."""
     if src is None:
-        src = os.path.join(CSRC, name + ".cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return out
+        srcs = {n[:-3]: os.path.join(CSRC, n)
+                for n in sorted(os.listdir(CSRC)) if n.endswith(".cu")}
+        srcs[name] = os.path.join(CSRC, name + ".cu")
+    else:
+        srcs = {name: src}
+    with _lock:  # one process's threads never write one temporary file
+        stale = {n: s for n, s in srcs.items() if not _fresh(n, s)}
+        if name in stale:
+            _compile(name, stale)
+    return _library(name)
+
+
+def _library(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _fresh(name: str, src: str) -> bool:
+    out = _library(name)
+    return os.path.exists(out) and os.path.getmtime(out) >= \
+        os.path.getmtime(src)
+
+
+def _compile(name: str, srcs: dict) -> None:
+    """One nvcc for each {library name: source}, all running at once;
+    raises when `name`'s fails (a failure of another source is raised
+    when that kernel is loaded)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, src]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} (rc {res.returncode}):\n"
-                           f"{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    runs = {}
+    for n, src in srcs.items():
+        tmp = f"{_library(n)}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp, src]
+        runs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True),
+                   tmp, src)
+    failed = None
+    for n, (proc, tmp, src) in runs.items():
+        _, err = proc.communicate()
+        if proc.returncode == 0:
+            # atomic: a concurrent loader never sees half a file
+            os.replace(tmp, _library(n))
+        elif n == name:
+            failed = f"nvcc failed for {src} (rc {proc.returncode}):\n{err}"
+    if failed:
+        raise RuntimeError(failed)
 
 
 def load(name: str) -> ctypes.CDLL:

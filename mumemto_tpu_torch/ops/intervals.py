@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from mumemto_tpu_torch.kernels import scan
 from mumemto_tpu_torch.ops.suffix import I32, I64, _num_levels
 
 INT32_MAX = 2**31 - 1
@@ -144,7 +145,7 @@ def _first_violation_from(prevf: torch.Tensor) -> torch.Tensor:
     a.scatter_reduce_(0, torch.clamp(prevf, 0, n - 1).to(I64),
                       torch.where(prevf >= 0, r, INT32_MAX),
                       reduce="amin", include_self=True)
-    return torch.flip(torch.cummin(torch.flip(a, (0,)), 0).values, (0,))
+    return scan.running_min(a, reverse=True)
 
 
 def _leftmost_mask(e: torch.Tensor, lcp: torch.Tensor, n: int
@@ -224,7 +225,7 @@ def analyze_intervals(lcp: torch.Tensor, da: torch.Tensor, bwt: torch.Tensor,
     # left-maximality: the last BWT change at rows <= e-1 must be > s
     changed = torch.ones(n, dtype=I32, device=dev)
     changed[1:] = (bwt[1:] != bwt[:-1]).to(I32)
-    last_change = torch.cummax(p * changed, 0).values
+    last_change = scan.running_max(p * changed)
     if windowed:
         # e - p < cap: select shift(last_change, k-1) where e == p + k
         lmv = torch.full((n,), -1, dtype=I32, device=dev)

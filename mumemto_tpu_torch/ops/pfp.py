@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from mumemto_tpu_torch import trace
-from mumemto_tpu_torch.kernels import kr_mask
+from mumemto_tpu_torch.kernels import kr_mask, scan
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import suffix as ops_suffix
 from mumemto_tpu_torch.ops.suffix import I32, I64
@@ -346,7 +346,7 @@ def _dict_groups(d, saD, lcpD, pos_meta, nd: int, w: int):
     valid = suf_len >= w
     gapmin = _segmented_min_after_valid(lcpD, valid)
     idx = torch.arange(nd, dtype=I32, device=dev)
-    last_valid = torch.cummax(torch.where(valid, idx, -1), 0).values
+    last_valid = scan.running_max(torch.where(valid, idx, -1))
     prev_valid_idx = torch.cat([torch.full((1,), -1, dtype=I32, device=dev),
                                 last_valid[:-1]])
     prev_len = torch.where(prev_valid_idx >= 0,
@@ -502,7 +502,7 @@ def _expand_operands(parse, d_starts, cumcnt, m: int, total_rows: int,
     trace.count(trace.READBACKS, 2)
     nxt.scatter_reduce_(0, starts_idx[keep].to(I64), cumcnt[1:][keep],
                         reduce="amax", include_self=True)
-    next_start = torch.cummax(nxt, 0).values
+    next_start = scan.running_max(nxt)
     suf_len = next_start + (w - 1) - r
     dictpos = r + _fill_per_occ(d_starts[pid_tab] - base + 1, starts_idx, nr)
     ssa = torch.clamp(r, max=n_text)

@@ -19,6 +19,7 @@ import math
 import torch
 
 from mumemto_tpu_torch import trace
+from mumemto_tpu_torch.kernels import scan
 
 I32 = torch.int32
 I64 = torch.int64
@@ -279,8 +280,7 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     plcp0 = torch.where(isa == 0, 0, plcp0)
     # chain fill: plcp[i] = plcp0[nx] + (nx - i) for the nearest
     # irreducible nx >= i (row n-1 is irreducible by construction)
-    nx = torch.flip(torch.cummin(torch.flip(
-        torch.where(irr, idx, n), [0]), 0).values, [0])
+    nx = scan.running_min(torch.where(irr, idx, n), reverse=True)
     plcp = plcp0[torch.clamp(nx, max=n - 1)] + (nx - idx)
     lcp = route_set(isa, plcp)
     lcp[0] = 0

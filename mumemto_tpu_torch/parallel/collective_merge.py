@@ -38,6 +38,7 @@ import torch
 from mumemto_tpu_torch import formats
 from mumemto_tpu_torch.analysis import merge as host_merge
 from mumemto_tpu_torch.analysis.mumdata import MUMdata
+from mumemto_tpu_torch.kernels import scan
 from mumemto_tpu_torch.ops.suffix import I32
 from mumemto_tpu_torch.parallel import mesh as pmesh
 
@@ -58,7 +59,7 @@ def _fold_pair(state, part):
 
     def side(bv, len_at):
         # current MUM at p = last start <= p (the searchsorted-right - 1)
-        cur = torch.cummax(torch.where(bv, idx, -1), 0).values
+        cur = scan.running_max(torch.where(bv, idx, -1))
         delta = idx - cur
         cur_len = len_at[torch.clamp(cur, min=0)]
         covered = (cur >= 0) & (delta <= cur_len)

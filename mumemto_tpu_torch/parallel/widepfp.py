@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import torch
 
+from mumemto_tpu_torch.kernels import scan
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import pfp as ops_pfp
 from mumemto_tpu_torch.ops import pipeline as ops_pipeline
@@ -117,7 +118,7 @@ def _block_operands(base: int, parse, d_starts, cumcnt, m: int,
     nxt = torch.zeros(B, dtype=I64, device=dev)
     nxt.scatter_reduce_(0, loc[in_blk], cum[1:][in_blk], reduce="amax",
                         include_self=True)
-    next_start = torch.maximum(torch.cummax(nxt, 0).values,
+    next_start = torch.maximum(scan.running_max(nxt),
                                cum[torch.clamp(j0p + 1, 0, mp1 - 1)])
     pad = gr >= total_rows
     suf_len = torch.where(pad, 0, next_start + (w - 1) - gr).to(I32)

@@ -273,7 +273,7 @@ def test_chip_smoke_phase_bench_rehearsal(monkeypatch):
     assert all(r["reps"] == 3 and r["baseline"]["matches"] == r["matches"]
                for r in report["bench"]["records"].values())
     assert report["bench"]["paths"] == {
-        f"bench {n}": {"kr_break_mask": 0, "add_one": 0}
+        f"bench {n}": {"kr_break_mask": 0, "add_one": 0, "running_scan": 0}
         for n in ("mum8", "real8", "f3_8")}
 
 

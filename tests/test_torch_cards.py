@@ -29,7 +29,7 @@ from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.parallel import mesh as t_mesh
 from mumemto_tpu_torch.parallel import mumemtom, seqpfp
 from test_torch_dcn import _run_ranks, _write_collection
-from test_torch_scale import _dict_flat, _NoCard, _TorchOnCpu
+from test_torch_scale import _count_scans, _dict_flat, _NoCard, _TorchOnCpu
 
 # several test workers share the machine's cores
 torch.set_num_threads(2)
@@ -162,7 +162,8 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
     baseline) at 4 kbp a document (C20 0.08 Mbp, C40 0.16 Mbp), on the CPU
     with the stand-ins of the phase 13/14 rehearsals: "cuda:r" resolves
     to the CPU, torch.cuda's sync and memory counters do nothing, the KR
-    wrapper counts a launch around its plain version, and the range-min
+    wrapper and the running max / min count a launch around their plain
+    versions, and the range-min
     guard refuses at the rehearsal's scale (from C40's union on), so m2's
     union is refused and its four partitions are not."""
     doc_mbp = 0.004
@@ -194,6 +195,7 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
     monkeypatch.setattr(t_mesh, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
     monkeypatch.setattr(kr_mask, "launches", 0)
+    _count_scans(monkeypatch)
     monkeypatch.setattr(t_pfp, "_rmq_query", guard_at_scale)
     # the dcn workers inherit it: two threads each
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
@@ -229,6 +231,7 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
         (inp, n) for inp in ("C20", "bench 0.06 Mbp")
         for n in (1, 4, 4, 8)]
     assert all(r["bytes_equal"] for r in s if r["shards"] > 1)
+    assert all(r["launches"]["running_scan"] > 0 for r in s)
     assert rows["s"]["trace"]["bytes_equal"]
     assert rows["c"]["fold"]["devices"] == ["cpu"] * RANKS
     assert rows["p"]["mesh_shape"] == [2, 2]

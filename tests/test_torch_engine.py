@@ -592,3 +592,25 @@ def test_cuda_routes_match_cpu(rng, tmp_path):
     got = t_engine.find_matches(meta, opts, device="cuda",
                                 parse_prefix=str(tmp_path / "cuda"))
     assert got.output_bytes() == (tmp_path / "cpu.mums").read_bytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["pfp", "direct"])
+@pytest.mark.parametrize("label,kw", ROUTE_MODES[:2])
+def test_cuda_main_path_launches_the_kernels(rng, label, kw, backend):
+    """On the card the PFP route launches the KR kernel and the running
+    max / min kernel, -g the scan kernel alone, in MUM mode and with -f 3;
+    each gives the CPU path's bytes."""
+    from mumemto_tpu_torch.kernels import kr_mask, scan
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rb = _route_rb(rng)
+    opts = options.normalize(rb.num_docs, quiet=True, **kw)
+    kr0, scan0 = kr_mask.launches, scan.launches
+    got = t_engine.find_matches(rb, opts, device="cuda", backend=backend)
+    torch.cuda.synchronize()
+    assert (kr_mask.launches - kr0 > 0) == (backend == "pfp")
+    assert scan.launches - scan0 > 0
+    want = t_engine.find_matches(rb, opts, device="cpu", backend=backend)
+    assert got.output_bytes() == want.output_bytes()
+    assert got.num_matches > 0

@@ -68,6 +68,59 @@ def test_module_exits_1_without_cuda():
     assert os.path.exists(lib) == existed  # no build attempted
 
 
+# stands in for nvcc: notes its source, waits until $WANT compiles have
+# started, then writes its -o file (bad.cu fails)
+FAKE_NVCC = """#!/bin/sh
+prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  prev="$a"
+done
+echo "$a" >> "$CALLS"
+touch "$STARTED/$(basename "$a")"
+i=0
+while [ "$(ls "$STARTED" | wc -l)" -lt "$WANT" ]; do
+  i=$((i + 1))
+  [ $i -gt 200 ] && exit 3
+  sleep 0.05
+done
+case "$a" in *bad.cu) echo "bad.cu: error" >&2; exit 2;; esac
+echo built > "$out"
+"""
+
+
+def test_build_compiles_the_stale_sources_together(tmp_path, monkeypatch):
+    """A stale csrc/<name>.cu is compiled with every other stale source,
+    one nvcc each, all at once (the stand-in nvcc waits until all three
+    have started, so compiles made in turn fail); another source's failure
+    does not fail the build, its own does, and a fresh library is not
+    compiled again."""
+    csrc, started = tmp_path / "csrc", tmp_path / "started"
+    csrc.mkdir()
+    started.mkdir()
+    for name in ("a", "b", "bad"):
+        (csrc / f"{name}.cu").write_text("")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    calls = tmp_path / "calls"
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setenv("CALLS", str(calls))
+    monkeypatch.setenv("STARTED", str(started))
+    monkeypatch.setenv("WANT", "3")
+    assert build.build("a") == str(tmp_path / "build" / "liba.so")
+    assert sorted(os.listdir(tmp_path / "build")) == ["liba.so", "libb.so"]
+    assert sorted(os.path.basename(c) for c in
+                  calls.read_text().split()) == ["a.cu", "b.cu", "bad.cu"]
+    assert build.build("b") == str(tmp_path / "build" / "libb.so")
+    with pytest.raises(RuntimeError, match="nvcc failed for .*bad.cu"):
+        build.build("bad")
+    assert sorted(os.path.basename(c) for c in calls.read_text().split()) \
+        == ["a.cu", "b.cu", "bad.cu", "bad.cu"]
+
+
 def _fake_card(monkeypatch, outcome):
     """Pretend a card exists and replace the child process by `outcome`
     (a CompletedProcess, or an exception to raise)."""

@@ -26,6 +26,7 @@ from mumemto_tpu_torch import options
 from mumemto_tpu_torch.kernels import kr_mask
 from mumemto_tpu_torch.oracle import naive
 from mumemto_tpu_torch.parallel import mesh
+from test_torch_scale import _count_scans, _kr_part
 
 # several test workers share the machine's cores
 torch.set_num_threads(2)
@@ -163,6 +164,7 @@ def test_phase_real_rehearsal(chip_smoke, monkeypatch):
     monkeypatch.setattr(mesh, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
     monkeypatch.setattr(kr_mask, "launches", 0)
+    _count_scans(monkeypatch)
     fake = _TorchOnCpu()
     opts = options.normalize(8, quiet=True)
     report = {"e2e": {}, "mem": {}}
@@ -177,7 +179,9 @@ def test_phase_real_rehearsal(chip_smoke, monkeypatch):
     for key in "abcd":
         row = rows[key]
         assert row["matches"] == row["baseline_matches"] > 0
-        assert row["launches"] == {"kr_break_mask": 2, "add_one": 0}
+        assert _kr_part(row["launches"]) == {"kr_break_mask": 2,
+                                             "add_one": 0}
+        assert row["launches"]["running_scan"] > 0
         assert row["seed_thr_is_none"]
         assert row["lcp_thr_is_none"] == (key == "d")
     acgt = report["e2e"]["0.16mbp"]
@@ -188,11 +192,14 @@ def test_phase_real_rehearsal(chip_smoke, monkeypatch):
     for key, lcp in (("e", "plcp"), ("e2", "descent")):
         assert rows[key]["bytes_equal_pfp_row"]
         assert rows[key]["index"]["lcp"] == lcp
-        assert not any(rows[key]["launches"].values())
+        assert not any(_kr_part(rows[key]["launches"]).values())
+        assert rows[key]["launches"]["running_scan"] > 0
     assert rows["e2"]["index"]["exits_early"]
     assert not rows["e"]["index"]["exits_early"]
     assert rows["f"]["bytes_equal_single_device"]
-    assert rows["f"]["launches"] == {"kr_break_mask": 1, "add_one": 0}
+    assert _kr_part(rows["f"]["launches"]) == {"kr_break_mask": 1,
+                                               "add_one": 0}
+    assert rows["f"]["launches"]["running_scan"] > 0
     assert "packed <=8-byte alphabet" in rows["f"]["shard_dict_refused"]
     assert len(rows["g"]) == 8 and all(
         all(sizes.values()) for sizes in rows["g"].values())

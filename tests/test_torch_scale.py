@@ -28,7 +28,7 @@ from mumemto_tpu.ops import suffix as jax_suffix
 from mumemto_tpu.parallel import mumemtom as jax_mumemtom
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
-from mumemto_tpu_torch.kernels import kr_mask
+from mumemto_tpu_torch.kernels import kr_mask, scan
 from mumemto_tpu_torch.ops import intervals as t_intervals
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.ops import suffix as t_suffix
@@ -197,6 +197,24 @@ class _TorchOnCpu:
         return getattr(torch, name)
 
 
+def _count_scans(monkeypatch):
+    """The running max / min as the rehearsals see it: its plain version,
+    each call counted in scan.launches as a launch on the card is."""
+    def counted(op):
+        def run(x, reverse=False):
+            scan.launches += 1
+            return scan.running_plain(x, op, reverse)
+        return run
+    monkeypatch.setattr(scan, "running_max", counted("max"))
+    monkeypatch.setattr(scan, "running_min", counted("min"))
+    monkeypatch.setattr(scan, "launches", 0)
+
+
+def _kr_part(launches):
+    """A launch record's KR and probe counts."""
+    return {k: launches[k] for k in ("kr_break_mask", "add_one")}
+
+
 def _dict_flat(rb):
     """nd x range-min levels of the dictionary of rb's PFP scan."""
     pfp = t_pfp.build_pfp(rb.text, torch.device("cpu"))
@@ -240,6 +258,7 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
     monkeypatch.setattr(t_device, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
     monkeypatch.setattr(kr_mask, "launches", 0)
+    _count_scans(monkeypatch)
     monkeypatch.setattr(t_pfp, "_rmq_query", guard_at_scale)
     # row d2's two worker processes inherit it: two threads each
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
@@ -253,7 +272,9 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
     for key in ("a", "b", "c", "e 0.16"):
         assert rows[key]["matches"] == rows[key]["baseline_matches"] > 0
     for key in ("a", "b", "c", "e 0.12", "e 0.16"):
-        assert rows[key]["launches"] == {"kr_break_mask": 2, "add_one": 0}
+        assert _kr_part(rows[key]["launches"]) == {"kr_break_mask": 2,
+                                                   "add_one": 0}
+        assert rows[key]["launches"]["running_scan"] > 0
         assert rows[key]["dict_flat"] < limit
         assert rows[key]["dict_levels"] == \
             t_suffix._num_levels(rows[key]["nd"]) + 1
@@ -263,7 +284,9 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
     assert rows["b"]["size_cap"] == 32 and rows["c"]["size_cap"] == 32
     assert set(rows["c"]["split_s"]) == {"fasta", "scan", "write"}
     assert rows["d"]["partition_docs"] == [11, 10]
-    assert rows["d"]["launches"] == {"kr_break_mask": 2, "add_one": 0}
+    assert _kr_part(rows["d"]["launches"]) == {"kr_break_mask": 2,
+                                               "add_one": 0}
+    assert rows["d"]["launches"]["running_scan"] > 0
     assert rows["d"]["only_union"] + rows["d"]["only_merged"] == \
         rows["d"]["terminal_touching_differences"]
     assert rows["d"]["calls"]["merge_fold"] == 1
@@ -273,7 +296,8 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
         tries = out["refused"][key]
         assert len(tries) == 1 and tries[0]["refused"]
         assert tries[0]["dict_flat"] >= limit
-        assert tries[0]["launches"] == {"kr_break_mask": 1, "add_one": 0}
+        assert _kr_part(tries[0]["launches"]) == {"kr_break_mask": 1,
+                                                  "add_one": 0}
     # every driven path is in the launch record: 5 scans of 2 runs, the
     # MumemtoM run, the dcn pair (no launch on the CPU), 2 refusals
     assert len(out["paths"]) == 9

@@ -585,10 +585,11 @@ def test_partition_window_capacity_on_threads():
 def test_named_rows_s_p_rehearsal(monkeypatch):
     """`chip_smoke.py --cards s p` at 0.06 Mbp a tier, with the stand-ins
     of tests/test_torch_cards.py ("cuda:r" resolves to the CPU, torch.cuda
-    counts nothing, the KR wrapper counts a launch around its plain
-    version): the rows' control flow, checks and record."""
+    counts nothing, the KR wrapper and the running max / min count a
+    launch around their plain versions): the rows' control flow, checks
+    and record."""
     from mumemto_tpu_torch.kernels import kr_mask
-    from test_torch_scale import _NoCard, _TorchOnCpu
+    from test_torch_scale import _count_scans, _NoCard, _TorchOnCpu
     sys.path.insert(0, ROOT)
     try:
         chip_smoke = importlib.import_module("chip_smoke")
@@ -612,6 +613,7 @@ def test_named_rows_s_p_rehearsal(monkeypatch):
         monkeypatch.setattr(mod, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
     monkeypatch.setattr(kr_mask, "launches", 0)
+    _count_scans(monkeypatch)
     report = {}
     chip_smoke.phase_wide(TorchOnCpu(), report, ("p", "s"),
                           s_mbp=(0.03, 0.06), p_doc_mbp=0.004, p_runs=2)
@@ -621,6 +623,7 @@ def test_named_rows_s_p_rehearsal(monkeypatch):
     assert [(r["input"], r["shards"]) for r in runs] == [
         (f"bench {m:g} Mbp", n) for m in (0.03, 0.06) for n in (1, 8, 8, 8)]
     assert all(r["bytes_equal"] for r in runs if r["shards"] > 1)
+    assert all(r["launches"]["running_scan"] > 0 for r in runs)
     assert [t["window"] for t in rows["s"]["traces"]] == [
         "whole call", "shard stages"] * 2
     assert all(t["bytes_equal"] for t in rows["s"]["traces"])

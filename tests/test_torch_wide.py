@@ -43,7 +43,7 @@ from mumemto_tpu_torch.kernels import kr_mask
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.parallel import mesh as t_mesh
 from mumemto_tpu_torch.parallel import mumemtom, seqpfp
-from test_torch_scale import _NoCard, _TorchOnCpu
+from test_torch_scale import _count_scans, _NoCard, _TorchOnCpu
 
 # several test workers share the machine's cores
 torch.set_num_threads(2)
@@ -145,8 +145,8 @@ def test_row_w_small_equals_engine_jax_and_baseline(chip_smoke, tmp_path,
 
 def _stand_ins(monkeypatch):
     """The rehearsal stand-ins: "cuda:r" resolves to the CPU, torch.cuda
-    does nothing, the KR wrapper counts a launch around its plain
-    version."""
+    does nothing, the KR wrapper and the running max / min count a launch
+    around their plain versions."""
     def on_cpu(device):
         return CPU
 
@@ -157,6 +157,7 @@ def _stand_ins(monkeypatch):
         monkeypatch.setattr(mod, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
     monkeypatch.setattr(kr_mask, "launches", 0)
+    _count_scans(monkeypatch)
     # the dcn workers inherit it: two threads each
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
 
@@ -197,6 +198,7 @@ def test_phase_wide_rehearsal(chip_smoke, monkeypatch):
     w = rows["w"]
     assert w["triple"] == base and w["rows"] > 0.75 * w["nr"]
     assert w["nr"] == limit and w["launches"]["kr_break_mask"] == 1
+    assert w["launches"]["running_scan"] > 0
     assert len(w["shard_matches"]) == SHARDS and not w["retries"]
     assert w["kr"]["breaks"] > 0 and w["kr"]["launches"] == 1
     assert w["cli"]["rc"] == 0 and w["cli"]["mums_equal_library"]
