@@ -101,14 +101,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      process, whose MUM set must equal row c's except for MUMs that touch
      a document's first or last base (counted), (d2) parallel/dcn with two
      worker processes sharing the card (files equal to row d's), (e) the
-     8-doc bench collection at 64 and 96 Mbp, (f) the bench collection at
-     128 Mbp and row a's documents at 1% SNPs, which _rmq_query's int32
-     guard must refuse with its ValueError (an input that runs is printed
-     as a finding and the next size is tried), (k) the KR kernel on row
+     8-doc bench collection at 64 and 96 Mbp, (f) row a's documents at 1%
+     SNPs with -k -1 (nd = 0.75 x 2^27, 28 levels: past the range-min's
+     int32 flat index, so _rmq_query reads the dictionary's table level by
+     level), and a text of 2^31 characters, which build_pfp must refuse
+     with ScanSizeError before any upload, in words the CLI's partition
+     fallback takes, (k) the KR kernel on row
      c's ext (0.75 x 2^28 bytes) against its plain version, timed beside
      its bound. Each row prints nd, the range-min levels and their product
      against 2^31, nr, walls, stage times, Mbp/s, peak memory and KR
-     launches (exactly 1 a scan); the counts of a, b, c and the 96 Mbp
+     launches (exactly 1 a scan); the counts of a, b, c, f and the 96 Mbp
      tier must equal live baseline_cpu runs, started together at the end;
  15. the throughput harness (python -m mumemto_tpu_torch.bench, run
      in-process: phase_bench) on mum8 (strict MUMs at 8 Mbp), real8 (the
@@ -2180,9 +2182,6 @@ def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
     report["real"] = out
 
 
-# _rmq_query's guard (both packages): a range-min table of n entries x
-# levels is refused at n x levels >= 2^31, where its int32 flat index would
-# overflow
 BENCH_ARGV = ["--config", "mum8", "real8", "f3_8", "--reps", "3",
               "--baseline"]
 
@@ -2208,13 +2207,15 @@ def phase_bench(torch, report, argv=BENCH_ARGV):
     report["bench"] = out
 
 
+# a range-min table of n entries x levels past this has no int32 flat
+# index: the JAX package refuses it, the port reads it level by level
 FLAT_INDEX_LIMIT = 2**31
 SCALE_DOCS = (10, 20)  # BASELINE.md configs 2-3 and 4: E. coli-like genomes
 
 
 def _flat_sizes(spy) -> dict:
     """The dictionary's range-min table (the one over nd entries) of the
-    scans `spy` saw: entries, levels, their product against the guard."""
+    scans `spy` saw: entries, levels, their product against 2^31."""
     nd = spy.sizes[0]["nd"]
     levels = {lv for n, lv in spy.rmq if n == nd}
     if len(levels) != 1:
@@ -2314,65 +2315,101 @@ def _baselines_together(jobs) -> dict:
 
 
 def _refused(torch, tag, label, rb, opts):
-    """One scan that the range-min guard must refuse: find_matches on the
-    card raises _rmq_query's ValueError on the dictionary's table, after
-    exactly one KR launch. Returns its record with `refused` False when the
-    scan ran to its end (then no table it asked for may reach the guard's
-    limit: the caller moves to the next size)."""
-    import re
-    from mumemto_tpu_torch import engine
+    """One scan of a collection past one card: find_matches on the card,
+    refused by size (ScanSizeError) or by the card's memory, in the words
+    the CLI's partition fallback takes (cli._too_big), after exactly one KR
+    launch. Returns its record with `refused` False when the scan ran to
+    its end (a finding, printed as such)."""
+    import gc
+    from mumemto_tpu_torch import cli, engine
     with _PrepSpy() as spy:
         bench.reset_launches()
         t0 = time.perf_counter()
         try:
             res = engine.find_matches(rb, opts, device="cuda")
-        except ValueError as e:
-            err = str(e)
+        except Exception as e:
+            err = cli._too_big(e)
+            if err is None:
+                raise
         else:
             err, matches = None, res.num_matches
             del res
+        gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         s = time.perf_counter() - t0
     launches = bench.launch_counts()
+    nd = spy.sizes[0]["nd"]
+    flat = _flat_sizes(spy) if any(n == nd for n, _ in spy.rmq) else {}
     entry = {"label": label, "num_docs": rb.num_docs,
              "text_chars": int(rb.text.size), "s": s, "launches": launches,
-             **spy.sizes[0], **_flat_sizes(spy), "refused": err is not None,
+             **spy.sizes[0], **flat, "refused": err is not None,
              "error": err}
     if _kr_of(launches) != {"kr_break_mask": 1, "add_one": 0}:
         raise AssertionError(f"{label}: kernel launches {launches}")
     if err is None:
         entry["matches"] = matches
-        if any(n * lv >= FLAT_INDEX_LIMIT for n, lv in spy.rmq):
-            raise AssertionError(f"{label}: ran to its end past the guard "
-                                 f"({spy.rmq})")
-        log(f"[scale] {tag}: FINDING: {label} ran to its end, nd "
-            f"{entry['nd']} x {entry['dict_levels']} levels = "
-            f"{entry['dict_flat']} < 2^31 ({matches} matches, {s:.1f} s)")
+        log(f"[scale] {tag}: FINDING: {label} ran to its end on one card, "
+            f"nd {nd}, nr {entry['nr']} ({matches} matches, {s:.1f} s)")
         return entry
-    got = re.fullmatch(r"range-min table of (\d+) levels x (\d+) entries "
-                       r"would overflow int32 flat indexing", err)
-    if not got or int(got[1]) * int(got[2]) < FLAT_INDEX_LIMIT or \
-            spy.rmq[-1][0] != entry["nd"]:
-        raise AssertionError(f"{label}: refused with {err!r} on the tables "
-                             f"{spy.rmq}, nd {entry['nd']}")
-    log(f"[scale] {tag}: {label} refused after {s:.1f} s: nd {entry['nd']} x "
-        f"{entry['dict_levels']} levels = {entry['dict_flat']} "
-        f"({entry['dict_flat_share']:.1%} of 2^31); {err}")
+    log(f"[scale] {tag}: {label} refused after {s:.1f} s: nd {nd}, nr "
+        f"{entry['nr']}; {err}")
+    return entry
+
+
+def _refused_text(torch, num_docs: int):
+    """A refusal the port keeps, at the card's size: a text of 2^31
+    characters (a zero-copy view: build_pfp reads its length alone, so
+    nothing is made or uploaded) through find_matches on the card must be
+    refused by ScanSizeError before the KR kernel, in the words the CLI's
+    partition fallback takes."""
+    import numpy as np
+    from mumemto_tpu_torch import cli, engine, options
+    from mumemto_tpu_torch.ops import pfp as ops_pfp
+    from mumemto_tpu_torch.refbuilder import RefBuilder
+    per_doc = 2**31 // num_docs + 1
+    n = per_doc * num_docs
+    rb = RefBuilder(text=np.broadcast_to(np.uint8(ord("A")), (n,)),
+                    seq_lengths=[per_doc] * num_docs, num_docs=num_docs,
+                    use_revcomp=True, input_files=[], multifasta_names=[],
+                    multifasta_lengths=[])
+    opts = options.normalize(num_docs, quiet=True)
+    bench.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        engine.find_matches(rb, opts, device="cuda")
+    except ops_pfp.ScanSizeError as e:
+        err, why = str(e), cli._too_big(e)
+    else:
+        raise AssertionError(f"a text of {n} characters was not refused")
+    entry = {"label": f"a text of 2^31 characters, {num_docs} docs",
+             "text_chars": n, "s": time.perf_counter() - t0,
+             "launches": bench.launch_counts(), "refused": True,
+             "error": err}
+    if "int32 phrase coordinates" not in err or why != err or \
+            _kr_of(entry["launches"]) != {"kr_break_mask": 0, "add_one": 0}:
+        raise AssertionError(f"text refusal: {err!r}, the CLI's answer "
+                             f"{why!r}, launches {entry['launches']}")
+    log(f"[scale] f: {entry['label']} refused after {entry['s']:.3f} s: "
+        f"{err}")
     return entry
 
 
 def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
-                refuse_mbp=128, dcn_device="cuda"):
+                dcn_device="cuda"):
     """The main path at BASELINE.md's sizes on one card (module docstring,
     phase 14): 10 and 20 genome-sized documents of doc_mbp Mbp (rows a-d2),
-    the 8-doc bench collection at bench_mbp (e), the inputs the range-min
-    guard must refuse (f) and the KR kernel on the largest ext (k). Every
-    comparison raises on a difference; nothing is caught but the refusal
-    that row f expects. dcn_device: the device of row d2's workers."""
+    the 8-doc bench collection at bench_mbp (e), row a's documents at 1%
+    SNPs past the range-min's flat index and a text past the phrase
+    coordinates, refused (f), and the KR kernel on the largest ext (k).
+    Every comparison raises on a difference; nothing is caught but the
+    refusal that row f expects. dcn_device: the device of row d2's
+    workers."""
     import numpy as np
     from mumemto_tpu_torch import cli, engine, options, refbuilder
     from mumemto_tpu_torch.analysis import merge as merge_mod
     from mumemto_tpu_torch.kernels import kr_mask
+    from mumemto_tpu_torch.ops import pfp as ops_pfp
     from mumemto_tpu_torch.parallel import mumemtom
     t_phase = time.perf_counter()
     out = {"paths": {}, "rows": {}, "refused": {}}
@@ -2519,29 +2556,26 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
         out["paths"][entry["label"]] = entry["launches"]
     jobs.append((f"e {mbp:g}", rb_e, opts_e, mbp))
 
-    # f: past the guard, the bench collection and the 10 documents at 1%
-    # divergence; an input that runs is a finding: the next size is tried
-    for key, first, make in (
-            ("bench", refuse_mbp, lambda m: _bench_rb(m)),
-            ("1% SNP", n_small * doc_mbp, lambda m: _rb_of(_synth_collection(
-                m, n_small, seed=0, snp_rate=0.01)))):
-        tries = []
-        for step in range(3):
-            mbp = first * 1.25 ** step
-            rb = make(mbp)
-            opts = options.normalize(rb.num_docs, quiet=True)
-            entry = _refused(torch, "f", f"{key} {rb.num_docs} docs "
-                             f"{mbp:g} Mbp", rb, opts)
-            tries.append(entry)
-            out["paths"][entry["label"]] = entry["launches"]
-            if entry["refused"]:
-                break
-        else:
-            raise AssertionError(f"f {key}: no size up to {mbp:g} Mbp was "
-                                 "refused")
-        out["refused"][key] = tries
+    # f: past the range-min's int32 flat index, row a's documents at 1%
+    # divergence (BASELINE config 2 as published); then a refusal that
+    # remains, a text past the int32 phrase coordinates
+    rb = _rb_of(_synth_collection(n_small * doc_mbp, n_small, seed=0,
+                                  snp_rate=0.01))
+    opts = options.normalize(n_small, quiet=True, num_distinct_docs=-1)
+    entry, res = _scale_scan(torch, "f", f"{n_small} docs x {doc_mbp:g} Mbp "
+                             "at 1% SNPs -k -1", rb, opts, n_small * doc_mbp)
+    del res
+    if entry["dict_flat"] < ops_pfp.RMQ_FLAT_LIMIT:
+        raise AssertionError(f"f: nd {entry['nd']} x {entry['dict_levels']} "
+                             "levels stays under the flat index's bound")
+    out["rows"]["f"] = entry
+    out["paths"][entry["label"]] = entry["launches"]
+    jobs.append(("f", rb, opts, n_small * doc_mbp))
+    text = _refused_text(torch, n_small)
+    out["refused"]["text"] = text
+    out["paths"][text["label"]] = text["launches"]
 
-    # the counts of a, b, c and e against live baseline_cpu runs
+    # the counts of a, b, c, e and f against live baseline_cpu runs
     del rb_a, rb
     t0 = time.perf_counter()
     base = _baselines_together(jobs)
@@ -2753,9 +2787,11 @@ def _cards_m1(torch, out, work, docs, doc_mbp, devices):
 
 def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc,
               key="m2", rb=None):
-    """Row m2 (or `key`), the collection one card refuses: the union on
-    one card (rb, or made from docs) must be refused by the range-min
-    guard; then dcn with one rank per entry of `devices` on as many anchor
+    """Row m2 (or `key`), a collection past one card: the union on one
+    card (rb, or made from docs), refused by size or by the card's memory
+    (_refused; one that runs is printed as a finding, as C40's may since
+    the range-min reads past its int32 flat index); then dcn with one rank
+    per entry of `devices` on as many anchor
     partitions, host fold. The merged .mums's count, sum of lengths and
     occurrence hash are held against native/baseline_cpu on the union
     later (_cards_baseline). The largest collection this takes is reasoned
@@ -2770,9 +2806,6 @@ def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc,
     rb = rb or _rb_of(docs)
     opts = options.normalize(n, quiet=True)
     refused = _refused(torch, key, f"C{n} union on one card", rb, opts)
-    if not refused["refused"]:
-        raise AssertionError(f"{key}: one card took the C{n} union")
-    torch.cuda.empty_cache()
     worker, filelist, env = _dcn_setup(d, fastas, key)
     prefix = os.path.join(d, "dcn")
     wall, ranks, _ = _dcn_run(f"{key} host fold", worker, prefix, filelist,
@@ -3223,8 +3256,8 @@ def phase_cards(torch, report, doc_mbp=5.0, card_docs=CARD_DOCS,
 # the named rows of `--cards`: the sharded scan at the row space it was
 # built for. 215 isolates of one bacterial species (the size of M.
 # tuberculosis H37Rv, 4.41 Mbp) at lineage-level divergence (0.01% SNPs):
-# 948.15 Mbp, ~1.9 G rows with revcomp, a 2^31-row bucket, under the
-# range-min guard, and within native/baseline_cpu's int32 text
+# 948.15 Mbp, ~1.9 G rows with revcomp, a 2^31-row bucket, a dictionary
+# under 2^26 characters, and within native/baseline_cpu's int32 text
 WIDE_DOCS = 215
 WIDE_DOC_MBP = 4.41
 WIDE_SNP = 1e-4

@@ -11,7 +11,7 @@ the direct backend. The subcommands run through analysis/dispatch (`merge`
 with --device, analysis/merge). A CUDA
 out-of-memory error on a strict multi-MUM run over >= 3 files, or a
 union one device's scan refuses by size (ops/pfp.ScanSizeError: a row
-space past 2^31, a range-min table past its int32 index), is retried as
+space past 2^31, a text past the int32 phrase coordinates), is retried as
 MumemtoM partitions on the same device; any other run so refused exits
 1 with the refusal. --seq-shards N shards the scan
 of one collection (the FASTA build or a -p resume) over N shards placed

@@ -48,10 +48,17 @@ CANON_ALPHA = (0, 1, 2, 36, 65, 67, 71, 84)
 ROW_LIMIT = 2**31
 
 
+# _rmq_query's level-major flat copy of a sparse table is indexed in int32:
+# a table of this many entries (levels x n) or more is read level by level
+RMQ_FLAT_LIMIT = 2**31
+# device bytes the range-min allocates in a call: each sparse table's
+# levels above level 0, and each flat copy a query makes
+RMQ_BYTES = "pfp.rmq.bytes"
+
+
 class ScanSizeError(ValueError):
     """A collection past what a scan takes: a row space past one device's
-    int32 row arrays, a text past the int32 phrase coordinates, or a
-    range-min table past its int32 flat index (_rmq_query). The CLI
+    int32 row arrays, or a text past the int32 phrase coordinates. The CLI
     answers it as it answers a device out-of-memory error: the partition
     fallback where that reproduces the run, else a clean error."""
 
@@ -142,24 +149,45 @@ def _segmented_min_after_valid(lcp: torch.Tensor,
     return seg_min[seg_id]
 
 
+def _min_table(values: torch.Tensor) -> list:
+    """The sparse min table of `values` (ops/intervals) that _rmq_query
+    reads; the levels it adds above `values` are counted in RMQ_BYTES."""
+    with trace.span("pfp.rmq"):
+        table = ops_intervals._sparse_min_table(values)
+        trace.count(RMQ_BYTES, sum(
+            t.numel() * t.element_size()
+            for prev, t in zip(table, table[1:]) if t is not prev))
+    return table
+
+
 def _rmq_query(table: list, lo: torch.Tensor, hi: torch.Tensor):
-    """min(values[lo..hi]) inclusive, O(1): two gathers into the
-    level-major flat copy of the sparse table."""
-    n = table[0].shape[0]
-    L1 = len(table)
-    if n * L1 >= 2**31:
-        raise ScanSizeError(f"range-min table of {L1} levels x {n} "
-                            "entries would overflow int32 flat indexing")
-    length = torch.clamp(hi - lo + 1, min=1)
-    # exact floor(log2): frexp of an int32 held in float64 is exact
-    lvl = (torch.frexp(length.to(torch.float64)).exponent - 1).to(I32)
-    lvl = torch.clamp(lvl, 0, L1 - 1)
-    width = torch.ones_like(lvl) << lvl
-    flat = torch.cat(list(table))
-    base = lvl * n
-    ia = base + torch.clamp(lo, 0, n - 1)
-    ib = base + torch.clamp(hi - width + 1, 0, n - 1)
-    return torch.minimum(flat[ia], flat[ib])
+    """min(values[lo..hi]) inclusive, O(1): the two power-of-two windows
+    of the sparse table that cover the range. Below RMQ_FLAT_LIMIT table
+    entries, two gathers into the level-major flat copy of the table; at
+    or past it, two gathers per level, each query keeping its own level's
+    (torch.where): no copy of the table, and no index past n."""
+    with trace.span("pfp.rmq"):
+        n = table[0].shape[0]
+        L1 = len(table)
+        length = torch.clamp(hi - lo + 1, min=1)
+        # exact floor(log2): frexp of an int32 held in float64 is exact
+        lvl = (torch.frexp(length.to(torch.float64)).exponent - 1).to(I32)
+        lvl = torch.clamp(lvl, 0, L1 - 1)
+        width = torch.ones_like(lvl) << lvl
+        if n * L1 >= RMQ_FLAT_LIMIT:
+            ia = torch.clamp(lo, 0, n - 1)
+            ib = torch.clamp(hi - width + 1, 0, n - 1)
+            out = torch.minimum(table[0][ia], table[0][ib])
+            for k in range(1, L1):
+                out = torch.where(lvl == k, torch.minimum(
+                    table[k][ia], table[k][ib]), out)
+            return out
+        flat = torch.cat(list(table))
+        trace.count(RMQ_BYTES, flat.numel() * flat.element_size())
+        base = lvl * n
+        ia = base + torch.clamp(lo, 0, n - 1)
+        ib = base + torch.clamp(hi - width + 1, 0, n - 1)
+        return torch.minimum(flat[ia], flat[ib])
 
 
 def _fill_per_occ(values: torch.Tensor, starts_idx: torch.Tensor, nr: int):
@@ -444,7 +472,7 @@ def _parse_side(pprime, cumC, d_starts, lcpD, isaD, mp: int):
     klcp = ops_suffix._lcp_impl(saP, histP, lvlP, mp)
     isaP = _isa_dev(saP, mp)
     slt = _build_slt(pprime, saP, klcp, cumC, d_starts, lcpD, isaD, mp)
-    return isaP, ops_intervals._sparse_min_table(slt)
+    return isaP, _min_table(slt)
 
 
 def _build_slt(pprime, saP, klcp, cumC, d_starts, lcpD, isaD, mp: int):
@@ -462,7 +490,7 @@ def _build_slt(pprime, saP, klcp, cumC, d_starts, lcpD, isaD, mp: int):
     yr = isaD[d_starts[y]]
     lo = torch.minimum(xr, yr) + 1
     hi = torch.maximum(xr, yr)
-    tab = ops_intervals._sparse_min_table(lcpD)
+    tab = _min_table(lcpD)
     pair = _rmq_query(tab, lo, hi)
     pair = torch.where((x == 0) | (y == 0) | (x == y), 0, pair)
     slt = torch.clamp(c + pair.to(I64), max=2**31 - 1).to(I32)

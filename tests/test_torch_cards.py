@@ -163,9 +163,9 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
     with the stand-ins of the phase 13/14 rehearsals: "cuda:r" resolves
     to the CPU, torch.cuda's sync and memory counters do nothing, the KR
     wrapper and the running max / min count a launch around their plain
-    versions, and the range-min
-    guard refuses at the rehearsal's scale (from C40's union on), so m2's
-    union is refused and its four partitions are not."""
+    versions, and a stand-in refusal at the rehearsal's scale: a range-min
+    table as large as C40's union's raises ScanSizeError, so m2's union is
+    refused and its four partitions are not."""
     doc_mbp = 0.004
     c40 = chip_smoke._rb_of(chip_smoke._synth_collection(40 * doc_mbp, 40))
     limit = _dict_flat(c40)
@@ -174,7 +174,8 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
     def guard_at_scale(table, lo, hi):
         n, levels = int(table[0].shape[0]), len(table)
         if n * levels >= limit:
-            table = [table[0][:1].expand(-(-2**31 // levels))] * levels
+            raise t_pfp.ScanSizeError(f"{levels} levels x {n} entries: the "
+                                      "rehearsal's one-card limit")
         return real_rmq(table, lo, hi)
 
     def on_cpu(device):

@@ -156,18 +156,25 @@ def test_expand_and_analyze(staged):
             assert _eq(res_t[key], res_j[key]), key
 
 
-def test_rmq_query_matches_and_guards(rng):
+@pytest.mark.parametrize("path", ["flat", "by level"])
+def test_rmq_query_matches_and_guards(rng, monkeypatch, path):
+    """Random ranges against a plain min, on the flat copy's path and, with
+    the bound lowered to the table's size, the level-by-level path (which
+    makes no copy of the table)."""
     v = rng.integers(0, 1000, 500).astype(np.int32)
     lo = rng.integers(0, 500, 300).astype(np.int32)
     hi = np.minimum(lo + rng.integers(0, 200, 300), 499).astype(np.int32)
     tab_t = t_pfp.ops_intervals._sparse_min_table(torch.from_numpy(v))
+    if path == "by level":
+        monkeypatch.setattr(t_pfp, "RMQ_FLAT_LIMIT", 500 * len(tab_t))
+
+        def no_copy(*a, **kw):
+            raise AssertionError("the table was copied")
+        monkeypatch.setattr(torch, "cat", no_copy)
     got = t_pfp._rmq_query(tab_t, torch.from_numpy(lo), torch.from_numpy(hi))
     want = np.array([v[a:b + 1].min() for a, b in zip(lo, hi)])
+    assert got.dtype == torch.int32
     assert (got.numpy() == want).all()
-    big = [torch.zeros(1, dtype=torch.int32).expand(1 << 27)] * 16
-    with pytest.raises(ValueError, match="overflow"):
-        t_pfp._rmq_query(big, torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("variant", ["acgt", "with_n"])

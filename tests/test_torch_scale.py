@@ -2,16 +2,18 @@
 10 and 20 genome-like documents (chip_smoke._synth_collection: mutated
 copies of one random base, 0.1% SNPs), partial multi-MUMs (-k -1), -f 3,
 strict MUMs on 20 documents, MumemtoM with two anchor partitions, and the
-int32 guard of the range-min query that sets the largest collection one
-card takes; then a CPU rehearsal of chip_smoke's phase_scale.
+range-min query past its int32 flat index, where the JAX package refuses;
+then a CPU rehearsal of chip_smoke's phase_scale.
 
 Both packages get the same numpy bytes, made from a seed; the JAX side runs
-on its CPU backend, as its own tests run it. The guard is asked at the
+on its CPU backend, as its own tests run it. The range-min is asked at the
 sizes the card meets (nd = 0.75 x 2^27 with 28 levels, 2^28 with 29) on
-zero-copy broadcast tables: both packages read only the table's length and
-level count before they refuse. Tolerance: none (counts and bytes).
+zero-copy broadcast tables: the port reads them level by level, the JAX
+package reads only their length and level count before it refuses.
+Tolerance: none (counts and bytes).
 """
 
+import collections
 import functools
 import importlib
 import os
@@ -28,6 +30,7 @@ from mumemto_tpu.ops import suffix as jax_suffix
 from mumemto_tpu.parallel import mumemtom as jax_mumemtom
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import kr_mask, scan
 from mumemto_tpu_torch.ops import intervals as t_intervals
 from mumemto_tpu_torch.ops import pfp as t_pfp
@@ -120,30 +123,100 @@ def test_mumemtom_anchor_partitions(chip_smoke, tmp_path):
 
 
 @pytest.mark.parametrize("n,levels", [
-    (3 << 25, 28),      # nd = 0.75 x 2^27: the bench collection at 128 Mbp
+    (3 << 25, 28),      # nd = 0.75 x 2^27: 10 genomes of 5 Mbp at 1% SNPs
     (1 << 28, 29),      # nd = 2^28
-    (-(-2**31 // 27), 27)])  # the first entry count refused at 27 levels
+    (-(-2**31 // 27), 27)])  # the first entry count past 2^31 at 27 levels
 def test_rmq_guard_refuses_in_both_packages(n, levels):
-    """_rmq_query's int32 flat-index guard at the sizes phase_scale's row f
-    meets, on zero-copy broadcast tables: a ValueError in the port, the
-    JAX package's assertion, and nothing read past the sizes."""
+    """Range-min tables past the int32 flat index, at the sizes
+    phase_scale's row f meets, on zero-copy broadcast tables whose levels
+    hold distinct constants: the port answers every query exactly (the
+    constant of its level, with ranges reaching the table's last entry)
+    with no copy of the table and nothing counted in RMQ_BYTES; the JAX
+    package still asserts."""
     assert n * levels >= 2**31
-    t_table = [torch.zeros(1, dtype=torch.int32).expand(n)] * levels
+    t_table = [torch.full((1,), 7 * k + 3, dtype=torch.int32).expand(n)
+               for k in range(levels)]
     j_table = [np.broadcast_to(np.zeros(1, np.int32), (n,))] * levels
-    lo = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="would overflow int32 flat "
-                                         "indexing"):
-        t_pfp._rmq_query(t_table, lo, lo + 1)
+    length = torch.tensor([1, 2, 3, 5, 1 << 20, (1 << 20) + 7, n // 2, n],
+                          dtype=torch.int64)
+    lo = torch.cat([torch.zeros_like(length), n - length])
+    hi = lo + torch.cat([length, length]) - 1
+    lvl = torch.clamp(torch.floor(torch.log2(
+        torch.cat([length, length]).double())).long(), max=levels - 1)
+    trace.enable()
+    with trace.call("engine.find_matches"):
+        got = t_pfp._rmq_query(t_table, lo.to(torch.int32),
+                               hi.to(torch.int32))
+    trace.disable()
+    counters = trace.drain()["counters"]
+    assert got.dtype == torch.int32
+    assert got.tolist() == (7 * lvl + 3).tolist()
+    assert all(t_pfp.RMQ_BYTES not in c for c in counters.values())
     with pytest.raises(AssertionError, match="overflow int32"):
         jax_pfp._rmq_query(j_table, np.zeros(4, np.int32),
                            np.ones(4, np.int32))
 
 
+def _reference():
+    """mumbench/reference.py, the benchmark's plain reference."""
+    sys.path.insert(0, os.path.join(ROOT, "mumbench"))
+    try:
+        return importlib.import_module("reference")
+    finally:
+        sys.path.remove(os.path.join(ROOT, "mumbench"))
+
+
+def _match_set(data: bytes, mum_mode: bool) -> collections.Counter:
+    """.mums or .mems bytes as reference.match_set's tuples, counted (as
+    mumbench/run.py's parse_output reads them, without importing the
+    harness, which sets up its own paths and caches)."""
+    out = []
+    for line in data.decode().splitlines():
+        f = line.split("\t")
+        if mum_mode:
+            out.append((int(f[0]), tuple(int(x) if x else -1
+                                         for x in f[1].split(",")),
+                        tuple(f[2].split(","))))
+        else:
+            out.append((int(f[0]), tuple(int(x) for x in f[1].split(",")),
+                        tuple(int(x) for x in f[2].split(",")),
+                        tuple(f[3].split(","))))
+    return collections.Counter(out)
+
+
+@pytest.mark.parametrize("seed", [3, 2**31 + 11, 2**33 + 7])
+@pytest.mark.parametrize("mix", [dict(k=-1, f=1, F=0), dict(k=0, f=3, F=0)],
+                         ids=["-k -1", "-f 3"])
+def test_range_min_by_level_through_a_whole_scan(monkeypatch, mix, seed):
+    """engine.find_matches on a seeded 1% collection (10 documents of 3
+    kbp), with RMQ_FLAT_LIMIT lowered so that every range-min table, the
+    dictionary's and the parse's, is read level by level: the output bytes
+    equal the flat path's, and the match set equals mumbench/reference.py's
+    (the plain reference the benchmark's correct rests on)."""
+    docs = _chip_smoke()._synth_collection(0.03, 10, seed=seed,
+                                           snp_rate=0.01)
+    rb = _chip_smoke()._rb_of(docs)
+    opts = options.normalize(10, quiet=True, num_distinct_docs=mix["k"],
+                             rare_freq=mix["f"], max_mem_freq=mix["F"])
+
+    def scan():
+        return t_engine.find_matches(rb, opts, device="cpu",
+                                     show_progress=False).output_bytes()
+    flat = scan()
+    monkeypatch.setattr(t_pfp, "RMQ_FLAT_LIMIT", 1)
+    by_level = scan()
+    assert by_level == flat
+    want = _reference().match_set(docs, min_len=20, **mix)
+    assert len(want) > 10
+    assert _match_set(by_level, opts.mum_mode) == collections.Counter(want)
+
+
 @pytest.mark.parametrize("nd", [3 << 24, 1 << 26, 3 << 25])
 def test_rmq_levels_at_the_card_sizes(nd):
     """The level count of the dictionary's range-min table at the bucketed
-    nd of the runs on the card: 27 levels up to 2^26 entries (accepted),
-    28 from 0.75 x 2^27 (refused), the same in both packages."""
+    nd of the runs on the card: 27 levels up to 2^26 entries (under the
+    int32 flat index), 28 from 0.75 x 2^27 (past it), the same in both
+    packages."""
     small = nd >> 14
     assert len(t_intervals._sparse_min_table(
         torch.zeros(small, dtype=torch.int32))) == \
@@ -224,29 +297,20 @@ def _dict_flat(rb):
 
 def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
     """phase_scale's rows at 8 kbp a document (0.08 / 0.16 Mbp), the bench
-    collection at 0.12 / 0.16 Mbp and the refused inputs at 0.32 Mbp and
-    1% SNPs, on the CPU with the stand-ins of the real-alphabet
-    rehearsal: device "cuda" resolves to the CPU, torch.cuda's calls do
-    nothing, the KR wrapper counts a launch around its plain version, and
-    the range-min guard refuses at the rehearsal's scale: a table whose
-    nd x levels reaches the smallest refused input's is passed on to the
-    real _rmq_query as a zero-copy table of 2^31 entries' worth."""
-    doc_mbp, bench, refuse = DOC_MBP, (0.12, 0.16), 0.32
+    collection at 0.12 / 0.16 Mbp and row f's documents at 1% SNPs, on the
+    CPU with the stand-ins of the real-alphabet rehearsal: device "cuda"
+    resolves to the CPU, torch.cuda's calls do nothing, the KR wrapper
+    counts a launch around its plain version, and the range-min's flat
+    index bound (RMQ_FLAT_LIMIT) is lowered to the rehearsal's scale, so
+    that row f's dictionary table alone is read level by level, as on the
+    card. Row f's refusal is the card's own: a zero-copy text of 2^31
+    characters."""
+    doc_mbp, bench = DOC_MBP, (0.12, 0.16)
     synth, rb_of = chip_smoke._synth_collection, chip_smoke._rb_of
     accepted = [rb_of(synth(n * doc_mbp, n)) for n in (10, 20)] + [
         chip_smoke._bench_rb(m) for m in bench]
-    refused = [chip_smoke._bench_rb(refuse),
-               rb_of(synth(10 * doc_mbp, 10, snp_rate=0.01))]
-    limit = min(_dict_flat(rb) for rb in refused)
+    limit = _dict_flat(rb_of(synth(10 * doc_mbp, 10, snp_rate=0.01)))
     assert max(_dict_flat(rb) for rb in accepted) < limit
-    real_rmq = t_pfp._rmq_query
-
-    def guard_at_scale(table, lo, hi):
-        n, levels = int(table[0].shape[0]), len(table)
-        if n * levels >= limit:
-            big = -(-2**31 // levels)
-            table = [table[0][:1].expand(big)] * levels
-        return real_rmq(table, lo, hi)
 
     def on_cpu(device):
         return torch.device("cpu")
@@ -259,28 +323,29 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
     monkeypatch.setattr(kr_mask, "launches", 0)
     _count_scans(monkeypatch)
-    monkeypatch.setattr(t_pfp, "_rmq_query", guard_at_scale)
+    monkeypatch.setattr(t_pfp, "RMQ_FLAT_LIMIT", limit)
     # row d2's two worker processes inherit it: two threads each
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
     report = {}
     chip_smoke.phase_scale(_TorchOnCpu(), report, doc_mbp=doc_mbp,
-                           bench_mbp=bench, refuse_mbp=refuse,
-                           dcn_device="cpu")
+                           bench_mbp=bench, dcn_device="cpu")
     out = report["scale"]
     rows = out["rows"]
-    assert set(rows) == {"a", "b", "c", "d", "d2", "e 0.12", "e 0.16"}
-    for key in ("a", "b", "c", "e 0.16"):
+    assert set(rows) == {"a", "b", "c", "d", "d2", "e 0.12", "e 0.16",
+                         "f"}
+    for key in ("a", "b", "c", "e 0.16", "f"):
         assert rows[key]["matches"] == rows[key]["baseline_matches"] > 0
-    for key in ("a", "b", "c", "e 0.12", "e 0.16"):
+    for key in ("a", "b", "c", "e 0.12", "e 0.16", "f"):
         assert _kr_part(rows[key]["launches"]) == {"kr_break_mask": 2,
                                                    "add_one": 0}
         assert rows[key]["launches"]["running_scan"] > 0
-        assert rows[key]["dict_flat"] < limit
+        assert (rows[key]["dict_flat"] >= limit) == (key == "f")
         assert rows[key]["dict_levels"] == \
             t_suffix._num_levels(rows[key]["nd"]) + 1
         assert set(rows[key]["stage_peak_bytes"]) == set(
             rows[key]["stages_s"])
-    assert rows["a"]["k"] == 9 and rows["a"]["size_cap"] == 16
+    assert rows["a"]["k"] == rows["f"]["k"] == 9
+    assert rows["a"]["size_cap"] == 16
     assert rows["b"]["size_cap"] == 32 and rows["c"]["size_cap"] == 32
     assert set(rows["c"]["split_s"]) == {"fasta", "scan", "write"}
     assert rows["d"]["partition_docs"] == [11, 10]
@@ -292,13 +357,11 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
     assert rows["d"]["calls"]["merge_fold"] == 1
     assert [r["scanned"] for r in rows["d2"]["ranks"]] == [[0], [1]]
     assert out["kernel"]["mismatches"] == 0 and out["kernel"]["breaks"] > 0
-    for key in ("bench", "1% SNP"):
-        tries = out["refused"][key]
-        assert len(tries) == 1 and tries[0]["refused"]
-        assert tries[0]["dict_flat"] >= limit
-        assert _kr_part(tries[0]["launches"]) == {"kr_break_mask": 1,
-                                                  "add_one": 0}
-    # every driven path is in the launch record: 5 scans of 2 runs, the
-    # MumemtoM run, the dcn pair (no launch on the CPU), 2 refusals
+    text = out["refused"]["text"]
+    assert text["refused"] and text["text_chars"] >= 2**31
+    assert "int32 phrase coordinates" in text["error"]
+    assert _kr_part(text["launches"]) == {"kr_break_mask": 0, "add_one": 0}
+    # every driven path is in the launch record: 6 scans of 2 runs, the
+    # MumemtoM run, the dcn pair (no launch on the CPU), the refusal
     assert len(out["paths"]) == 9
     assert sum(p["kr_break_mask"] for p in out["paths"].values()) == 14

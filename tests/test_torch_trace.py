@@ -53,6 +53,7 @@ PARTS = {
     "engine.emit_mems.join": {"engine.emit"},
     "native.load": {"pfp.build.sort"},
     "kernels.load": {"pfp.build.breaks"},
+    "pfp.rmq": {"pfp.parse_side", "pfp.expand_sort_analyze"},
 }
 PFP = ["build_pfp", "dict_index", "parse_side", "expand_sort_analyze"]
 DIRECT = ["suffix_array", "lcp", "analyze"]
@@ -190,6 +191,9 @@ def test_span_tree_of_a_call(route, tmp_path):
                 "pfp.build.sort", "pfp.build.records"} <= names
     if ROUTES[route][1] == "direct":
         assert {"direct.text", "pfp.alphabet"} <= names
+    pfp = ROUTES[route][1] == "pfp"
+    assert ("pfp.rmq" in names) == pfp
+    assert (ops_pfp.RMQ_BYTES in got["counters"][root["id"]]) == pfp
     mem = "rare_freq" in ROUTES[route][0]
     assert ({"engine.emit_mems.positions", "engine.emit_mems.format",
              "engine.emit_mems.join"} <= names) == mem
@@ -419,6 +423,32 @@ def test_readbacks_pass_the_main_path_sites(tmp_path, monkeypatch):
     assert seen[("suffix.py", "_suffix_array_impl")] >= 1
     assert seen[("pipeline.py", "_select_ordered")] == 1
     assert seen[("engine.py", "_to_host")] == 1 + 5
+
+
+@pytest.mark.parametrize("path", ["flat", "by level"])
+def test_rmq_bytes_count_the_tables_and_copies(path, monkeypatch):
+    """pfp.rmq.bytes counts a sparse table's levels above level 0 and, on
+    the flat path alone, the flat copy a query makes; each table build and
+    query is a pfp.rmq span."""
+    n = 1000
+    values = torch.arange(n, dtype=torch.int32).flip(0)
+    levels = len(ops_pfp.ops_intervals._sparse_min_table(values))
+    if path == "by level":
+        monkeypatch.setattr(ops_pfp, "RMQ_FLAT_LIMIT", n * levels)
+    lo = torch.tensor([0, 5, 999], dtype=torch.int32)
+    hi = torch.tensor([999, 600, 999], dtype=torch.int32)
+    trace.enable()
+    with trace.call(ROOT):
+        table = ops_pfp._min_table(values)
+        got = ops_pfp._rmq_query(table, lo, hi)
+    trace.disable()
+    kept = trace.drain()
+    assert got.tolist() == [0, 399, 0]
+    copy = n * levels * 4 if path == "flat" else 0
+    (counters,) = kept["counters"].values()
+    assert counters == {ops_pfp.RMQ_BYTES: (levels - 1) * n * 4 + copy}
+    assert [s["name"] for s in kept["spans"]] == [ROOT, "pfp.rmq",
+                                                  "pfp.rmq"]
 
 
 def test_native_load_is_a_span(monkeypatch):

@@ -221,7 +221,8 @@ def test_phase_wide_rehearsal(chip_smoke, monkeypatch):
 
 def test_phase_wide_m3_rehearsal(chip_smoke, monkeypatch):
     """Row m3 at 4 kbp a document (40 genomes at 0.1% SNPs) with the
-    stand-ins and the range-min guard at the union's scale (as
+    stand-ins and a stand-in refusal at the union's scale (ScanSizeError
+    from a range-min table as large as the union's, as
     tests/test_torch_cards.py rehearses row m2): the union on one card is
     refused, four dcn ranks take it, and the merged triple equals the live
     baseline_cpu's, started before the row."""
@@ -233,7 +234,8 @@ def test_phase_wide_m3_rehearsal(chip_smoke, monkeypatch):
     def guard_at_scale(table, lo, hi):
         n, levels = int(table[0].shape[0]), len(table)
         if n * levels >= limit:
-            table = [table[0][:1].expand(-(-2**31 // levels))] * levels
+            raise t_pfp.ScanSizeError(f"{levels} levels x {n} entries: the "
+                                      "rehearsal's one-card limit")
         return real_rmq(table, lo, hi)
     _stand_ins(monkeypatch)
     monkeypatch.setattr(t_pfp, "_rmq_query", guard_at_scale)
