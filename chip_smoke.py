@@ -22,6 +22,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      kernel, the plain version and torch.cummax(x, 0) beside the bytes
      bound; and its launches in one call of the PFP path (MUM mode and -f
      3) and of -g on the 8 Mbp bench collection;
+ 4c. the phrase sort on the card (phase_phrases) at the record counts of
+     the benchmark's three collections (20 x 6.6 Mbp at 0.1% SNPs, 10 x
+     3.6 and 10 x 5 Mbp at 1%): ops/pfp.sort_phrases's wall beside the
+     native host sort's (the same ranks, exactly), each phrase kernel
+     against its plain version on the sort's own inputs (mismatches
+     counted), the fingerprint and verify kernels timed beside their bytes
+     bound, the tail kernel's time and largest group, rounds, collisions
+     and launches; every path below must launch the phrase kernels once a
+     KR launch (_sorted), and the kernels line sums them over the paths;
   5. the main path end to end on the bench input (_synth_collection,
      8 docs, 0.1% SNP, revcomp, strict multi-MUMs) at 8 and 32 Mbp: stage
      times, Mbp/s, peak device memory, and the match count against a live
@@ -176,10 +185,12 @@ from mumemto_tpu_torch.bench import (  # noqa: E402
     trace_cards as _trace_cards, triple as _triple,
     write_fastas as _write_fastas)
 
-LAUNCH_KEYS = ("kr_break_mask", "add_one", "running_scan")  # bench.counted's
+LAUNCH_KEYS = ("kr_break_mask", "add_one", "running_scan",  # bench.counted's
+               "phrase_fingerprint", "phrase_verify", "phrase_tail_rank")
 KR_SOURCE = "mumemto_tpu_torch/kernels/csrc/kr_mask.cu"
 KR_REPLACES = "mumemto_tpu/ops/pallas_kernels.py:103"
 SCAN_SOURCE = "mumemto_tpu_torch/kernels/csrc/scan.cu"
+PHRASES_SOURCE = "mumemto_tpu_torch/kernels/csrc/phrases.cu"
 PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
 PROBE_REPLACES = "tools/mosaic_probe.py:25"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the data sheet's peak)
@@ -422,7 +433,7 @@ def _host_split(torch, probe, tile, reps: int = 10000) -> dict:
 def phase_build(report):
     """Every kernel source of the port, one nvcc each, started together
     (the first build.build of a stale source builds them all)."""
-    from mumemto_tpu_torch.kernels import build, kr_mask, probe, scan
+    from mumemto_tpu_torch.kernels import build, kr_mask, phrases, probe, scan
     names = sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
     t0 = time.perf_counter()
     for name in names:
@@ -430,6 +441,7 @@ def phase_build(report):
     kr_mask.launcher()
     probe._kernel()
     scan.launcher()
+    phrases.launcher()
     report["build_s"] = time.perf_counter() - t0
     report["kernel_sources"] = names
     log(f"[build] {', '.join(names)} built and loaded in "
@@ -666,6 +678,155 @@ def phase_scan(torch, report):
     log(f"[scan] launches a call at 8 Mbp: "
         f"{json.dumps(out['launches_per_call'])}")
     report["scan"] = out
+
+
+PHRASE_SETS = (("human20x6.6mbp", 132, 20, 0.001),
+               ("ecoli10x3.6mbp", 36, 10, 0.01),
+               ("ecoli10x5mbp", 50, 10, 0.01))
+
+
+def phase_phrases(torch, report):
+    """The phrase sort on the card (ops/pfp.sort_phrases) against the
+    native host sort (native/mumemto_native.cc's std::sort, what the JAX
+    package's build_pfp calls) on the records of each collection: parse,
+    phrase_st and phrase_ln exactly equal; the device sort's wall (median
+    of 3 warm calls, its readbacks included) beside the host sort's; each
+    kernel against its plain version on the inputs the sort gives it, its
+    mismatches counted (fingerprints that differ, the difference of the
+    verify counts, buckets the tail ranks otherwise); the fingerprint and
+    verify kernels timed by CUDA events beside their bound at
+    HBM_BYTES_PER_S (the records' bytes once, and st, ln and the
+    fingerprint, or order, head, st and ln, 16 bytes a record); the tail
+    kernel's time in one call, its groups, members and largest group; the
+    rounds, collisions and launches of that call (counted from 0 just
+    before it). Written also to chiprun_out/chip_smoke_phrases.json."""
+    import numpy as np
+    from mumemto_tpu_torch import native, trace
+    from mumemto_tpu_torch.kernels import phrases
+    from mumemto_tpu_torch.ops import pfp as ops_pfp
+    dev = torch.device("cuda")
+    nat = native.get_native()
+    out = {"card": _smi(), "sets": {}}
+    for label, mbp, docs, snp in PHRASE_SETS:
+        rb = _rb_of(_synth_collection(mbp, docs, seed=0, snp_rate=snp))
+        ext_np = _ext_of(rb.text, 10)
+        ext = torch.from_numpy(ext_np).to(dev)
+        n_text = int(rb.text.size)
+        st, ln = ops_pfp.phrase_records(
+            ops_pfp.compute_breaks(ext, n_text, 10, 100), n_text, 10)
+        m = st.numel()
+        row = {"text": n_text, "records": m,
+               "record_bytes": int(ln.sum(dtype=torch.int64))}
+        # the native host sort, once, and its fields
+        st_np, ln_np = st.cpu().numpy(), ln.cpu().numpy()
+        t = time.perf_counter()
+        order_b, grp_b = nat.sort_phrases(ext_np, st_np, ln_np)
+        row["host_sort_s"] = time.perf_counter() - t
+        order = np.frombuffer(order_b, np.int32)
+        grp = np.frombuffer(grp_b, np.int32)
+        rep = order[np.concatenate([[True], grp[1:] != grp[:-1]])]
+        want_parse = np.zeros(m, np.int32)
+        want_parse[order] = grp + 1
+        # the device sort: one traced call, its tail timed and checked
+        # against the plain version on a copy of the same buckets
+        tails = []
+        real_tail = phrases.tail_rank
+
+        def timed_tail(ext_, st_, ln_, rec, active, starts, d, bucket):
+            want = bucket.clone()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            real_tail(ext_, st_, ln_, rec, active, starts, d, bucket)
+            end.record()
+            torch.cuda.synchronize()
+            phrases.tail_rank_plain(ext_, st_, ln_, rec, active, starts, d,
+                                    want)
+            tails.append({"ms": start.elapsed_time(end),
+                          "groups": starts.numel() - 1,
+                          "members": active.numel(),
+                          "largest_group": int((starts[1:]
+                                                - starts[:-1]).max()),
+                          "depth": d,
+                          "mismatches": int((bucket != want).sum())})
+        phrases.tail_rank = timed_tail
+        bench.reset_launches()
+        trace.enable()
+        try:
+            with trace.call("engine.find_matches"):
+                parse, phrase_st, phrase_ln = ops_pfp.sort_phrases(
+                    ext, st, ln)
+        finally:
+            trace.disable()
+            phrases.tail_rank = real_tail
+        (counters,) = trace.drain()["counters"].values()
+        row["launches"] = {k: v for k, v in bench.launch_counts().items()
+                           if k in phrases.KERNELS}
+        row["rounds"] = counters[ops_pfp.SORT_ROUNDS_COUNTER]
+        row["collisions"] = counters[ops_pfp.SORT_COLLISIONS]
+        row["readbacks"] = counters[trace.READBACKS]
+        row["tail"] = tails[0] if tails else None
+        if not (np.array_equal(parse, want_parse)
+                and np.array_equal(phrase_st[1:], st_np[rep])
+                and np.array_equal(phrase_ln[1:], ln_np[rep])):
+            raise AssertionError(f"[phrases] {label}: the device sort "
+                                 "differs from the native sort")
+        if not bench.sorted_on_card(row["launches"], 1) or \
+                row["launches"]["phrase_tail_rank"] != len(tails):
+            raise AssertionError(f"[phrases] {label}: launches "
+                                 f"{row['launches']}")
+        row["phrases"] = int(phrase_st.size - 1)
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ops_pfp.sort_phrases(ext, st, ln)
+            walls.append(time.perf_counter() - t)
+        row["device_sort_s"] = statistics.median(walls[1:])
+        row["device_sort_s_runs"] = walls
+        # the kernels against their plain versions, and timed
+        fp = phrases.fingerprint(ext, st, ln)
+        srt, _run, head = ops_pfp.fingerprint_runs(fp, ln)
+        bad = phrases.verify(ext, st, ln, srt, head)
+        row["mismatches"] = {
+            "fingerprint": int((fp != phrases.fingerprint_plain(
+                ext, st, ln)).sum()),
+            "verify": abs(int(bad) - int(phrases.verify_plain(
+                ext, st, ln, srt, head))),
+            "tail_rank": row["tail"]["mismatches"] if tails else 0}
+        if any(row["mismatches"].values()):
+            raise AssertionError(f"[phrases] {label}: kernels differ from "
+                                 f"their plain versions: {row['mismatches']}")
+        rb_bytes = row["record_bytes"]
+        for name, fn in (
+                ("fingerprint", lambda: phrases.fingerprint(ext, st, ln)),
+                ("verify", lambda: phrases.verify(ext, st, ln, srt, head))):
+            ms = statistics.median(_event_ms(torch, fn, 5) for _ in range(3))
+            moved = rb_bytes + 16 * m
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            row[name] = {"ms": ms, "bound_ms": bound, "bytes": moved,
+                         "share_of_bound": bound / ms}
+        out["sets"][label] = row
+        tail = row["tail"] or {"groups": 0, "largest_group": 0, "ms": 0.0}
+        log(f"[phrases] {label}: {m} records, {row['phrases']} phrases, "
+            f"device sort {row['device_sort_s']:.4f} s against the host's "
+            f"{row['host_sort_s']:.3f} s; rounds {row['rounds']}, "
+            f"collisions {row['collisions']}, tail {tail['groups']} groups "
+            f"(largest {tail['largest_group']}) {tail['ms']:.3f} ms; "
+            f"fingerprint {row['fingerprint']['ms']:.4f} ms "
+            f"({row['fingerprint']['share_of_bound']:.1%} of "
+            f"{row['fingerprint']['bound_ms']:.4f}), verify "
+            f"{row['verify']['ms']:.4f} ms "
+            f"({row['verify']['share_of_bound']:.1%} of "
+            f"{row['verify']['bound_ms']:.4f}); readbacks {row['readbacks']}; "
+            f"mismatches {row['mismatches']}")
+        del ext, st, ln, fp, srt, _run, head, bad
+        torch.cuda.empty_cache()
+    report["phrases"] = out
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_phrases.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
 
 
 def _drive(torch, label, rb, opts, mbp, backend="pfp"):
@@ -1020,9 +1181,20 @@ def _kr_of(launches) -> dict:
 
 def _scanned(label, launches):
     """A path that scans on the card must have launched the running max /
-    min kernel."""
+    min kernel, and _sorted's phrase kernels."""
     if launches["running_scan"] < 1:
         raise AssertionError(f"{label}: no running_scan launch: {launches}")
+    _sorted(label, launches)
+
+
+def _sorted(label, launches):
+    """Each build_pfp of a path (one a KR launch) must have ranked its
+    phrases on the card: one phrase_fingerprint and one phrase_verify
+    launch, at most one phrase_tail_rank; a path without a KR launch
+    (-g, -p, -a) none of them."""
+    if not bench.sorted_on_card(launches, launches["kr_break_mask"]):
+        raise AssertionError(f"{label}: phrase kernel launches {launches}, "
+                             f"{launches['kr_break_mask']} KR launches")
 
 
 def _mums_set(path, num_docs, order=None):
@@ -1732,7 +1904,7 @@ t0 = time.perf_counter()
 sys.path.insert(0, sys.argv[5])
 import torch
 import chip_smoke
-from mumemto_tpu_torch.kernels import kr_mask, probe
+from mumemto_tpu_torch.kernels import kr_mask, phrases, probe
 from mumemto_tpu_torch.kernels import scan as scan_kernel
 from mumemto_tpu_torch.parallel import dcn, mumemtom
 rank, port, prefix = int(sys.argv[1]), sys.argv[2], sys.argv[3]
@@ -1768,6 +1940,7 @@ def break_mask(ext, *a):
 mumemtom.scan_partition = scan
 kr_mask.break_mask = break_mask
 kr_mask.launches = probe.launches = scan_kernel.launches = 0
+phrases.launches.update(dict.fromkeys(phrases.KERNELS, 0))
 dcn.initialize("127.0.0.1:" + port, nproc, rank)
 t1 = time.perf_counter()
 dcn.run_partitioned_dcn(files, prefix, anchor=True, num_partitions=nparts,
@@ -1779,7 +1952,7 @@ print("DCN_WORKER " + json.dumps({
     "rank": rank, "device": device, "scanned": scanned, "partitions": parts,
     "kr_break_mask": kr_mask.launches, "kr_devices": kr_devices,
     "add_one": probe.launches, "running_scan": scan_kernel.launches,
-    "start_s": t1 - t0,
+    **phrases.launches, "start_s": t1 - t0,
     "run_s": time.perf_counter() - t1,
     "peak_alloc_bytes":
         torch.cuda.max_memory_allocated(device) if card else 0}))
@@ -1833,11 +2006,11 @@ def _dcn_run(label, worker, prefix, filelist, collective, env, devices,
     port: another job on the machine can take the port between its probe
     and the workers' bind, and a loaded host can miss gloo's connect
     window; a real fault shows again). Of nparts anchor partitions, rank r
-    must have scanned r, r + P, ..., launching the KR kernel once a
-    partition on its own card ("cuda" is cuda:0 in every process) and
-    never on the CPU; with want_files (a prefix) the merged files must
-    equal its. Returns (group seconds, the ranks' records, the files'
-    sizes)."""
+    must have scanned r, r + P, ..., launching the KR kernel and sorting
+    the phrases (_sorted) once a partition on its own card ("cuda" is
+    cuda:0 in every process) and never on the CPU; with want_files (a
+    prefix) the merged files must equal its. Returns (group seconds, the
+    ranks' records, the files' sizes)."""
     for attempt in (0, 1):
         t0 = time.perf_counter()
         procs, ends = _dcn_group(worker, prefix, filelist, collective, env,
@@ -1863,7 +2036,8 @@ def _dcn_run(label, worker, prefix, filelist, collective, env, devices,
         want_kr = [card] * len(mine) if card.startswith("cuda") else []
         if rec["scanned"] != mine or rec["kr_devices"] != want_kr or \
                 rec["kr_break_mask"] != len(want_kr) or rec["add_one"] or \
-                (rec["running_scan"] > 0) != bool(want_kr):
+                (rec["running_scan"] > 0) != bool(want_kr) or \
+                not bench.sorted_on_card(rec, len(want_kr)):
             raise AssertionError(f"{label}: rank {rank} on "
                                  f"{devices[rank]} reports {rec}")
         ranks.append(rec)
@@ -2203,7 +2377,7 @@ def phase_bench(torch, report, argv=BENCH_ARGV):
         out["records"][rec["config"]] = rec
         out["paths"][f"bench {rec['config']}"] = {
             "kr_break_mask": rec["kr_launches"] * rec["calls"], "add_one": 0,
-            "running_scan": rec["scan_launches"]}
+            "running_scan": rec["scan_launches"], **rec["phrase_launches"]}
     report["bench"] = out
 
 
@@ -2318,8 +2492,9 @@ def _refused(torch, tag, label, rb, opts):
     """One scan of a collection past one card: find_matches on the card,
     refused by size (ScanSizeError) or by the card's memory, in the words
     the CLI's partition fallback takes (cli._too_big), after exactly one KR
-    launch. Returns its record with `refused` False when the scan ran to
-    its end (a finding, printed as such)."""
+    launch and at most one phrase sort (_sorted). Returns its record with
+    `refused` False when the scan ran to its end (a finding, printed as
+    such)."""
     import gc
     from mumemto_tpu_torch import cli, engine
     with _PrepSpy() as spy:
@@ -2345,7 +2520,9 @@ def _refused(torch, tag, label, rb, opts):
              "text_chars": int(rb.text.size), "s": s, "launches": launches,
              **spy.sizes[0], **flat, "refused": err is not None,
              "error": err}
-    if _kr_of(launches) != {"kr_break_mask": 1, "add_one": 0}:
+    sorts = launches["phrase_fingerprint"]
+    if _kr_of(launches) != {"kr_break_mask": 1, "add_one": 0} or sorts > 1 \
+            or not bench.sorted_on_card(launches, sorts):
         raise AssertionError(f"{label}: kernel launches {launches}")
     if err is None:
         entry["matches"] = matches
@@ -3799,6 +3976,7 @@ def main() -> int:
     phase_build(report)
     phase_kernel(torch, report)
     phase_scan(torch, report)
+    phase_phrases(torch, report)
     res_8mbp, mums_32mbp = phase_end_to_end(torch, report)
     res_f3 = phase_mem(torch, report)
     phase_walk(torch, report)
@@ -3830,7 +4008,10 @@ def main() -> int:
     report["path_launches"].update(report["real"]["paths"])
     report["path_launches"].update(report["bench"]["paths"])
     report["path_launches"].update(report["scale"]["paths"])
+    for label, launches in report["path_launches"].items():
+        _sorted(label, launches)
     pr = report["probe"]
+    big = report["phrases"]["sets"][PHRASE_SETS[0][0]]
     # add_one's bound: the (8, 128) int32 tile read once and written once
     probe_bound_ms = 2 * 8 * 128 * 4 / HBM_BYTES_PER_S * 1e3
     kernels = {"kernels": [{
@@ -3855,7 +4036,17 @@ def main() -> int:
         "replaces": PROBE_REPLACES, "launches": pr["launches"],
         "max_abs_err": pr["max_abs_err"], "ms": pr["ms"],
         "plain_ms": pr["plain_ms"], "bound_ms": probe_bound_ms,
-        "bound_by": "bytes", "library_ms": pr["library_ms"]}]}
+        "bound_by": "bytes", "library_ms": pr["library_ms"]}] + [{
+        "name": f"phrase_{k}", "route": "cuda", "source": PHRASES_SOURCE,
+        "replaces": None, "launches": sum(
+            v[f"phrase_{k}"] for v in report["path_launches"].values()),
+        "max_abs_err": max(r["mismatches"][k]
+                           for r in report["phrases"]["sets"].values()),
+        "ms": big[k]["ms"] if k != "tail_rank" else big["tail"]["ms"],
+        "plain_ms": None,
+        "bound_ms": big[k]["bound_ms"] if k != "tail_rank" else None,
+        "bound_by": "bytes" if k != "tail_rank" else "comparisons",
+        "library_ms": None} for k in ("fingerprint", "verify", "tail_rank")]}
     device = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}

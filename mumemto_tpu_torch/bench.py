@@ -14,8 +14,10 @@ warm-up), `reps` timed calls, one call under the engine's stage hook and,
 on a card, one call under torch.profiler, and prints one JSON line on
 stdout: walls (median, best, max, spread), Mbp/s, the stage split, each
 card's peak allocation over the timed calls, the device's busy share, the
-KR kernel's launches per call, the running max / min kernel's launches
-over all calls, the count against the one on record and,
+KR kernel's launches per call, the running max / min kernel's and the
+phrase kernels' launches over all calls (each call must have sorted its
+phrases on the card once a KR launch), the count against the one on
+record and,
 where it ran, against a live native/baseline_cpu run on the same bytes
 (on by default below 100 Mbp). The last line has bench.py's keys for the
 first configuration: {"metric", "value" (Mbp/s of the best call), "unit",
@@ -362,15 +364,25 @@ def counted(torch, fn):
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from mumemto_tpu_torch.kernels import kr_mask, probe, scan
+    from mumemto_tpu_torch.kernels import kr_mask, phrases, probe, scan
     kr_mask.launches = probe.launches = scan.launches = 0
+    phrases.launches.update(dict.fromkeys(phrases.KERNELS, 0))
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count, by the kernel's name."""
-    from mumemto_tpu_torch.kernels import kr_mask, probe, scan
+    from mumemto_tpu_torch.kernels import kr_mask, phrases, probe, scan
     return {"kr_break_mask": kr_mask.launches, "add_one": probe.launches,
-            "running_scan": scan.launches}
+            "running_scan": scan.launches,
+            **{k: phrases.launches[k] for k in phrases.KERNELS}}
+
+
+def sorted_on_card(launches: dict, sorts: int) -> bool:
+    """Whether launch counts show `sorts` phrase sorts on the card, and
+    nothing else of the phrase kernels: one fingerprint and one verify
+    launch each, and at most one tail launch."""
+    return (launches["phrase_fingerprint"] == launches["phrase_verify"]
+            == sorts and launches["phrase_tail_rank"] <= sorts)
 
 
 def busy_overlap(spans) -> dict:
@@ -603,6 +615,7 @@ def run_config(torch, cfg, dev, args) -> dict:
     """One configuration (module docstring) on `dev`: its record, after
     every check passed; raises on the first that fails."""
     from mumemto_tpu_torch import options, properties
+    from mumemto_tpu_torch.kernels import phrases
     mbp = cfg.mbp if args.mbp is None else args.mbp
     ndocs = cfg.docs if args.docs is None else args.docs
     seed = cfg.seed if args.seed is None else args.seed
@@ -632,17 +645,21 @@ def run_config(torch, cfg, dev, args) -> dict:
         log(f"[bench] {cfg.name}: {mbp:g} Mbp, {ndocs} docs, "
             f"{rb.text.size} chars, set up in {time.perf_counter() - t0:.1f} s")
         n_calls = scans = 0
+        phrase_launches = dict.fromkeys(phrases.KERNELS, 0)
 
         def call(fn):
             nonlocal n_calls, scans
             out, s, launches = counted(torch, fn)
             n_calls += 1
             scans += launches["running_scan"]
+            for k in phrase_launches:
+                phrase_launches[k] += launches[k]
             got = route.count(out)
             if (launches["kr_break_mask"], launches["add_one"]) != \
-                    (per_call, 0):
+                    (per_call, 0) or not sorted_on_card(launches, per_call):
                 _fail(cfg, f"kernel launches {launches} in one call, "
-                      f"expected {per_call} KR launches and no add_one")
+                      f"expected {per_call} KR launches and phrase sorts "
+                      "and no add_one")
             if expected is not None and got != expected:
                 _fail(cfg, f"{got} matches, {expected} on record")
             return out, s, got
@@ -707,7 +724,10 @@ def run_config(torch, cfg, dev, args) -> dict:
                 torch, lambda: trace_cards(torch, traced, work))
             n_calls += 1
             scans += launches["running_scan"]
-            if launches["kr_break_mask"] != per_call or got != matches:
+            for k in phrase_launches:
+                phrase_launches[k] += launches[k]
+            if launches["kr_break_mask"] != per_call or got != matches or \
+                    not sorted_on_card(launches, per_call):
                 _fail(cfg, f"the traced call: {got} matches, launches "
                       f"{launches}")
             ov = busy_overlap(spans)
@@ -746,7 +766,8 @@ def run_config(torch, cfg, dev, args) -> dict:
         "stages_s": timer.stages, "peak_gib": peaks,
         "busy_share": busy["busy_s"] / busy["traced_s"] if busy else None,
         "busy": busy, "kr_launches": per_call,
-        "scan_launches": scans, "calls": n_calls,
+        "scan_launches": scans, "phrase_launches": phrase_launches,
+        "calls": n_calls,
         "matches": matches, "expected": expected, "baseline": base,
         "vs_baseline": mbp / best / base["mbp_per_s"] if base else None}
     if calls_s is not None:

@@ -2,10 +2,11 @@
 
 The native module (native/mumemto_native.cc) is the C++ data-loader
 equivalent of the reference's kseq.h+zlib ingest layer, plus the phrase
-sort. This package builds its own image of it, mumemto_tpu_torch/_native.so
-(g++, links zlib), on demand, and skips it silently when it cannot be
-built — every caller must work against the fallback too. Disable with
-MUMEMTO_TPU_NO_NATIVE=1.
+sort (which the port does not call: ops/pfp.sort_phrases ranks the phrases
+on the device). This package builds its own image of it,
+mumemto_tpu_torch/_native.so (g++, links zlib), on demand, and skips it
+silently when it cannot be built — every caller must work against the
+fallback too. Disable with MUMEMTO_TPU_NO_NATIVE=1.
 """
 
 from __future__ import annotations

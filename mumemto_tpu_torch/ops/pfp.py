@@ -5,7 +5,8 @@ for the algorithm):
 
   1. parse      Karp-Rabin window-hash breaks (the CUDA kernel
                 kernels/kr_mask.py on the card), compacted with nonzero.
-  2. dictionary unique phrases sorted on the host (native C++ sort).
+  2. dictionary unique phrases ranked on the device (sort_phrases:
+                fingerprint dedupe, 7-byte MSD rounds, kernels/phrases.py).
   3. dict index D materialized on the device, depth-capped prefix
                 doubling, PLCP or rank-descent LCP, suffix groups.
   4. parse side parse SA + LCP + ISA, s_lcp_T and its range-min table.
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from mumemto_tpu_torch import trace
-from mumemto_tpu_torch.kernels import kr_mask, scan
+from mumemto_tpu_torch.kernels import kr_mask, phrases, scan
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import suffix as ops_suffix
 from mumemto_tpu_torch.ops.suffix import I32, I64
@@ -87,48 +88,169 @@ def _compact_breaks(mask: torch.Tensor) -> torch.Tensor:
 
 
 def compute_breaks(ext: torch.Tensor, n_text: int, w: int, mod: int
-                   ) -> np.ndarray:
-    """Break positions (window-end chars) in TEXT coords, as int32 numpy."""
+                   ) -> torch.Tensor:
+    """Break positions (window-end chars) in TEXT coords, as int32 on ext's
+    device."""
     mask, count = kr_mask.break_mask(ext, n_text, w, mod)
     trace.count(trace.READBACKS)
     if int(count) == 0:
-        return np.zeros(0, dtype=np.int32)
-    trace.count(trace.READBACKS)  # the .cpu() below
-    breaks = _compact_breaks(mask).to(I32).cpu().numpy()
-    return breaks - 1  # ext coord -> text coord
+        return torch.zeros(0, dtype=I32, device=ext.device)
+    return _compact_breaks(mask).to(I32) - 1  # ext coord -> text coord
 
 
 # ---------------------------------------------------------------------------
 # 2. dictionary
 # ---------------------------------------------------------------------------
 
-def sort_phrases(ext_np: np.ndarray, st_np: np.ndarray, ln_np: np.ndarray):
-    """Lex-sort phrase records on the host; returns (order, grp), grp the
-    0-based rank group in sorted order (equal phrases share grp). Native
-    C++ sort when the extension builds, else Python's sort."""
-    from mumemto_tpu_torch.native import get_native
-    nat = get_native()
-    if nat is not None and hasattr(nat, "sort_phrases"):
-        order_b, grp_b = nat.sort_phrases(
-            np.ascontiguousarray(ext_np),
-            np.ascontiguousarray(st_np, dtype=np.int32),
-            np.ascontiguousarray(ln_np, dtype=np.int32))
-        return (np.frombuffer(order_b, dtype=np.int32).copy(),
-                np.frombuffer(grp_b, dtype=np.int32).copy())
-    m = int(st_np.size)
-    keys = [ext_np[s:s + l].tobytes()
-            for s, l in zip(st_np.tolist(), ln_np.tolist())]
-    order = sorted(range(m), key=keys.__getitem__)
-    grp = np.empty(m, np.int32)
-    g = -1
-    prev = None
-    for rank, rec in enumerate(order):
-        k = keys[rec]
-        if k != prev:
-            g += 1
-            prev = k
-        grp[rank] = g
-    return np.asarray(order, dtype=np.int32), grp
+def phrase_records(breaks: torch.Tensor, n_text: int, w: int):
+    """(st, ln): each phrase record's start in ext coords and its length,
+    int32 on the breaks' device. Record i runs from the window of break
+    i - 1 (from 0 for the first) through break i (through the w trailing
+    decoration chars for the last), so records overlap by w chars."""
+    m = breaks.numel() + 1
+    st = torch.zeros(m, dtype=I32, device=breaks.device)
+    en = torch.full((m,), n_text + w, dtype=I32, device=breaks.device)
+    st[1:] = breaks - w + 2
+    en[:-1] = breaks + 1
+    return st, en - st + 1
+
+
+# rounds of 7-byte keys before the groups still tied go to the tail kernel
+SORT_ROUNDS = 16
+# trace counters: refinement rounds and failed fingerprint checks of a call
+SORT_ROUNDS_COUNTER = "pfp.sort.rounds"
+SORT_COLLISIONS = "pfp.sort.collisions"
+_KEY_BYTES = 7
+
+
+def sort_phrases(ext: torch.Tensor, st: torch.Tensor, ln: torch.Tensor):
+    """Rank the phrase records ext[st[r] : st[r] + ln[r]] (int32 st and ln
+    on ext's device) in unsigned-byte lexicographic order, a proper prefix
+    first, on ext's device: the kernels of kernels/phrases on a CUDA
+    tensor, their plain versions on a CPU tensor. Returns numpy int32
+    (parse, phrase_st, phrase_ln): parse[r] the 1-based rank of record r's
+    phrase; phrase_st / phrase_ln (index 0 unused) the start and length of
+    each phrase's smallest record.
+
+    1. Dedupe: records sorted by (fingerprint, length), stably, so each
+       run's head is its smallest record; every record is checked byte for
+       byte against its head. If any check fails (a fingerprint
+       collision), every record is ranked in step 2 instead of the heads.
+    2. Refine (MSD): each still-tied record's next 7 bytes, big-endian,
+       zero past its end, and min(remaining, 8) make one key that orders
+       as memcmp-then-shorter; a round sorts (bucket, key), where a
+       record's bucket is the final position of its group's first member,
+       splits the groups and drops the resolved ones (a group of one, or
+       one whose members all ended: equal). After SORT_ROUNDS rounds the
+       groups still tied are ranked by the tail kernel.
+    3. Scatter the dense ranks to every record; one readback."""
+    m = st.numel()
+    dev = ext.device
+    idx = torch.arange(m, dtype=I32, device=dev)
+    order, run_start, head = fingerprint_runs(
+        phrases.fingerprint(ext, st, ln), ln)
+    bad = phrases.verify(ext, st, ln, order, head)
+    trace.count(trace.READBACKS)
+    collisions = int(bad)
+    trace.count(SORT_COLLISIONS, collisions)
+    if collisions:
+        order = run_id = rec = idx  # rank every record
+    else:
+        run_id = torch.cumsum(run_start, 0, dtype=I32) - 1
+        trace.count(trace.READBACKS)  # the mask index reads its size back
+        rec = order[run_start]
+    bucket = _refine(ext, st, ln, rec)
+    # dense ranks (equal records share a bucket only after a collision)
+    h = rec.numel()
+    seen = torch.zeros(h, dtype=I32, device=dev)
+    seen[bucket] = 1
+    dense = torch.cumsum(seen, 0, dtype=I32) - 1
+    grp = dense[bucket]
+    rep = torch.full((h,), m, dtype=I32, device=dev)
+    rep.scatter_reduce_(0, grp.to(I64), rec, reduce="amin")
+    rep = torch.clamp(rep, max=m - 1)
+    parse = torch.empty(m, dtype=I32, device=dev)
+    parse[order] = grp[run_id] + 1
+    zero = parse.new_zeros(1)
+    trace.count(trace.READBACKS)
+    out = torch.cat([dense[-1:] + 1, parse, zero, st[rep], zero, ln[rep]]
+                    ).cpu().numpy()
+    num_phrases = int(out[0])
+    parse_np = out[1:m + 1]
+    phrase_st = out[m + 1:m + 2 + num_phrases]
+    phrase_ln = out[m + h + 2:m + h + 3 + num_phrases]
+    return parse_np, phrase_st, phrase_ln
+
+
+def fingerprint_runs(fp: torch.Tensor, ln: torch.Tensor):
+    """The records sorted by (fingerprint, length), stably, so that equal
+    pairs keep their index order: (order, run_start, head), int32 order,
+    run_start True at the first record of each run of equal pairs, and
+    head[i] the first record of sorted record i's run (its smallest)."""
+    by_ln = torch.argsort(ln, stable=True)
+    order = by_ln[torch.argsort(fp[by_ln], stable=True)]
+    sfp, sln = fp[order], ln[order]
+    run_start = torch.ones(order.numel(), dtype=torch.bool, device=fp.device)
+    run_start[1:] = (sfp[1:] != sfp[:-1]) | (sln[1:] != sln[:-1])
+    order = order.to(I32)
+    idx = torch.arange(order.numel(), dtype=I32, device=fp.device)
+    return order, run_start, order[scan.running_max(
+        torch.where(run_start, idx, -1))]
+
+
+def _round_keys(ext, st, ln, rec, d: int) -> torch.Tensor:
+    """Each record's key at depth d: bytes d .. d + 6 big-endian (zero past
+    its end) above 4 bits of min(ln - d, 8)."""
+    start = st[rec].to(I64) + d
+    left = ln[rec].to(I64) - d
+    j = torch.arange(_KEY_BYTES, dtype=I64, device=ext.device)
+    at = torch.clamp(start[:, None] + j, max=ext.numel() - 1)
+    b = torch.where(j < left[:, None], ext[at].to(I64), 0)
+    shift = 8 * (_KEY_BYTES - 1 - j) + 4
+    return (b << shift).sum(1) | torch.clamp(left, max=_KEY_BYTES + 1)
+
+
+def _refine(ext, st, ln, rec) -> torch.Tensor:
+    """bucket[s]: the final position of the first member of record rec[s]'s
+    group among the records rec, ranked by their bytes (step 2 of
+    sort_phrases); equal records share it."""
+    dev = ext.device
+    h = rec.numel()
+    bucket = torch.zeros(h, dtype=I32, device=dev)
+    active = torch.arange(h if h > 1 else 0, dtype=I32, device=dev)
+    rounds = 0
+    while active.numel() and rounds < SORT_ROUNDS:
+        key = _round_keys(ext, st, ln, rec[active], _KEY_BYTES * rounds)
+        perm = torch.argsort(key, stable=True)
+        if rounds:  # the groups of the rounds before
+            perm = perm[torch.argsort(bucket[active[perm]], stable=True)]
+        active, key = active[perm], key[perm]
+        grp = bucket[active]
+        i = torch.arange(active.numel(), dtype=I32, device=dev)
+        new_grp = torch.ones(active.numel(), dtype=torch.bool, device=dev)
+        new_grp[1:] = grp[1:] != grp[:-1]
+        new_sub = new_grp.clone()
+        new_sub[1:] |= key[1:] != key[:-1]
+        bucket[active] = grp + (scan.running_max(torch.where(new_sub, i, -1))
+                                - scan.running_max(torch.where(new_grp, i, -1)))
+        alone = new_sub.clone()
+        alone[:-1] &= new_sub[1:]
+        tied = ~alone & ((key & 15) > _KEY_BYTES)
+        trace.count(trace.READBACKS)  # the mask index reads its size back
+        active = active[tied]
+        rounds += 1
+    trace.count(SORT_ROUNDS_COUNTER, rounds)
+    if active.numel():
+        grp = bucket[active]
+        first = torch.ones(active.numel(), dtype=torch.bool, device=dev)
+        first[1:] = grp[1:] != grp[:-1]
+        trace.count(trace.READBACKS)
+        starts = torch.cat([torch.nonzero(first).flatten().to(I32),
+                            torch.full((1,), active.numel(), dtype=I32,
+                                       device=dev)])
+        phrases.tail_rank(ext, st, ln, rec, active, starts,
+                          _KEY_BYTES * rounds, bucket)
+    return bucket
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +378,8 @@ def _alphabet(bytes_np: np.ndarray) -> tuple:
 
 def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
               mod: int = 100) -> PFPData:
-    """Parse the collection text: upload ext, KR breaks on the device,
-    phrase records and their lexicographic ranks on the host. Phrase
+    """Parse the collection text: upload ext, KR breaks, the phrase records
+    and their lexicographic ranks on the device (sort_phrases). Phrase
     coordinates are int32, so ext ([2] + text + [2]*w) must stay below
     2^31 bytes: a longer text raises ScanSizeError before anything is
     copied. Its parts are the spans pfp.build.text, pfp.alphabet,
@@ -281,30 +403,11 @@ def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
     with trace.span("pfp.build.breaks"):
         breaks = compute_breaks(ext, n_text, w, mod)
     with trace.span("pfp.build.records"):
-        k = breaks.size
-        m = k + 1
-        st = np.empty(m, np.int32)
-        en = np.empty(m, np.int32)
-        st[0] = 0
-        if k:
-            st[1:] = breaks - w + 2
-            en[:-1] = breaks + 1
-        en[-1] = n_text + w
-        ln = en - st + 1
-
+        st, ln = phrase_records(breaks, n_text, w)
     with trace.span("pfp.build.sort"):
-        order, grp = sort_phrases(ext_pad, st, ln)
-    with trace.span("pfp.build.records"):
-        num_phrases = int(grp[-1]) + 1 if order.size else 0
-        first = np.concatenate([[True], grp[1:] != grp[:-1]])
-        rep = order[first]
-        phrase_st = np.zeros(num_phrases + 1, np.int32)
-        phrase_ln = np.zeros(num_phrases + 1, np.int32)
-        phrase_st[1:] = st[rep]
-        phrase_ln[1:] = ln[rep]
-        parse = np.zeros(m, np.int32)
-        parse[order] = grp + 1
-    return PFPData(w=w, n_text=n_text, m=m, num_phrases=num_phrases,
+        parse, phrase_st, phrase_ln = sort_phrases(ext, st, ln)
+    num_phrases = phrase_st.size - 1
+    return PFPData(w=w, n_text=n_text, m=parse.size, num_phrases=num_phrases,
                    d_len=int(phrase_ln.sum()) + num_phrases + 1,
                    ext=ext, parse=parse, phrase_st=phrase_st,
                    phrase_ln=phrase_ln, alpha=alpha)

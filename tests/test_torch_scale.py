@@ -31,7 +31,7 @@ from mumemto_tpu.parallel import mumemtom as jax_mumemtom
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch import trace
-from mumemto_tpu_torch.kernels import kr_mask, scan
+from mumemto_tpu_torch.kernels import kr_mask, phrases, scan
 from mumemto_tpu_torch.ops import intervals as t_intervals
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.ops import suffix as t_suffix
@@ -271,8 +271,9 @@ class _TorchOnCpu:
 
 
 def _count_scans(monkeypatch):
-    """The running max / min as the rehearsals see it: its plain version,
-    each call counted in scan.launches as a launch on the card is."""
+    """The running max / min and the phrase kernels as the rehearsals see
+    them: their plain versions, each call counted in scan.launches or
+    phrases.launches as a launch on the card is."""
     def counted(op):
         def run(x, reverse=False):
             scan.launches += 1
@@ -281,6 +282,19 @@ def _count_scans(monkeypatch):
     monkeypatch.setattr(scan, "running_max", counted("max"))
     monkeypatch.setattr(scan, "running_min", counted("min"))
     monkeypatch.setattr(scan, "launches", 0)
+
+    def counted_phrases(name, plain):
+        def run(*a):
+            phrases.launches[name] += 1
+            return plain(*a)
+        return run
+    for name, plain in (("fingerprint", phrases.fingerprint_plain),
+                        ("verify", phrases.verify_plain),
+                        ("tail_rank", phrases.tail_rank_plain)):
+        monkeypatch.setattr(phrases, name,
+                            counted_phrases(f"phrase_{name}", plain))
+    monkeypatch.setattr(phrases, "launches",
+                        dict.fromkeys(phrases.KERNELS, 0))
 
 
 def _kr_part(launches):

@@ -51,8 +51,7 @@ PARTS = {
     "engine.emit_mems.positions": {"engine.emit"},
     "engine.emit_mems.format": {"engine.emit"},
     "engine.emit_mems.join": {"engine.emit"},
-    "native.load": {"pfp.build.sort"},
-    "kernels.load": {"pfp.build.breaks"},
+    "kernels.load": {"pfp.build.breaks", "pfp.build.sort"},
     "pfp.rmq": {"pfp.parse_side", "pfp.expand_sort_analyze"},
 }
 PFP = ["build_pfp", "dict_index", "parse_side", "expand_sort_analyze"]
@@ -402,9 +401,11 @@ def test_readbacks_count_every_copy(route, tmp_path, monkeypatch):
 
 def test_readbacks_pass_the_main_path_sites(tmp_path, monkeypatch):
     """The sites of the PFP path and the engine: the KR count and the
-    break list (3), a round of the parse's uncapped doubling (1 each), the
-    engine's counts (1), the emit selection's nonzero (1) and the five
-    windows (5) are all counted."""
+    break list's nonzero (2; the list stays on the device), the phrase
+    sort's fingerprint check, its heads and its one readback of the parse
+    (3), a round of its refinement and of the parse's uncapped doubling (1
+    each), the engine's counts (1), the emit selection's nonzero (1) and
+    the five windows (5) are all counted."""
     seen = {}
     real = trace.count
 
@@ -418,8 +419,11 @@ def test_readbacks_pass_the_main_path_sites(tmp_path, monkeypatch):
     trace.enable()
     _call("mum", tmp_path)
     trace.disable()
-    assert seen[("pfp.py", "compute_breaks")] == 2
+    assert seen[("pfp.py", "compute_breaks")] == 1
     assert seen[("pfp.py", "_compact_breaks")] == 1
+    # with no fingerprint collision the sort_phrases counters add 0
+    assert seen[("pfp.py", "sort_phrases")] == 3
+    assert seen[("pfp.py", "_refine")] >= 1
     assert seen[("suffix.py", "_suffix_array_impl")] >= 1
     assert seen[("pipeline.py", "_select_ordered")] == 1
     assert seen[("engine.py", "_to_host")] == 1 + 5
