@@ -31,7 +31,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bound, the tail kernel's time and largest group, rounds, collisions
      and launches; every path below must launch the phrase kernels once a
      KR launch (_sorted), and the kernels line sums them over the paths;
-  5. the main path end to end on the bench input (_synth_collection,
+  5. the main path end to end on the bench input (bench.synth_collection,
      8 docs, 0.1% SNP, revcomp, strict multi-MUMs) at 8 and 32 Mbp: stage
      times, Mbp/s, peak device memory, and the match count against a live
      run of native/baseline_cpu;
@@ -89,7 +89,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      equal to phase 10's MumemtoM anchor run's);
  13. the real-alphabet variant of the main path (any input with an N takes
      it: the 7-bit seed, the rank-descent dictionary LCP) on
-     _synth_collection_real, the bench collection with assembly gaps
+     bench.synth_collection_real, the bench collection with assembly gaps
      written over it as runs of N (100 to 50 000 long, ~1.5% of the bases)
      and, for one row, the ten IUPAC ambiguity codes: (a) strict MUMs at 8
      Mbp, (b) at 32 Mbp, (c) -f 3 at 8 Mbp, (d) the IUPAC input at 8 Mbp
@@ -102,7 +102,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      shard_dict=True refused for this alphabet); (g) .mums, .mems, .thresh and -g's .mums
      at 1 Mbp on the card against the port's CPU path, both inputs; and
      the KR kernel against its plain version on the ACGTN ext;
- 14. the main path at BASELINE.md's sizes (phase_scale): _synth_collection
+ 14. the main path at BASELINE.md's sizes (phase_scale): bench.synth_collection
      with 10 and 20 documents of 5 Mbp (a bacterial genome), 0.1% SNPs:
      (a) 10 docs, partial multi-MUMs (-k -1), (b) -f 3, (c) 20 docs from 20
      FASTAs through cli.main, strict MUMs, (d) MumemtoM on row c's FASTAs,
@@ -173,17 +173,6 @@ if __name__ == "__main__" and not os.path.isdir(
              "run it from the repository root")
 
 from mumemto_tpu_torch import bench  # noqa: E402
-from mumemto_tpu_torch.bench import (  # noqa: E402
-    IUPAC_CODES, StageTimer, SumTimer,
-    Baseline as _Baseline, Split as _Split,
-    build_cpu_baseline as _build_cpu_baseline,
-    busy_overlap as _busy_overlap, counted as _counted,
-    cpu_baseline as _cpu_baseline, occ_stats as _occ_stats, rb_of as _rb_of,
-    run_cpu_baseline as _run_cpu_baseline, smi as _smi, sync_all as _sync_all,
-    synth_collection as _synth_collection,
-    synth_collection_real as _synth_collection_real,
-    trace_cards as _trace_cards, triple as _triple,
-    write_fastas as _write_fastas)
 
 LAUNCH_KEYS = ("kr_break_mask", "add_one", "running_scan",  # bench.counted's
                "phrase_fingerprint", "phrase_verify", "phrase_tail_rank")
@@ -231,28 +220,31 @@ def _current(torch, device):
 
 def _bench_rb(mbp: float, seed: int = 0, n_docs: int = N_DOCS):
     """The bench collection as a RefBuilder at `mbp` Mbp."""
-    return _rb_of(_synth_collection(mbp, n_docs, seed=seed))
+    return bench.rb_of(bench.synth_collection(mbp, n_docs, seed=seed))
 
 
 def _real_rb(mbp: float, seed: int = 0, iupac: bool = False):
-    """_synth_collection_real's collection as a RefBuilder at `mbp` Mbp."""
-    return _rb_of(_synth_collection_real(mbp, N_DOCS, seed=seed, iupac=iupac))
+    """bench.synth_collection_real's collection as a RefBuilder at `mbp`
+    Mbp."""
+    return bench.rb_of(bench.synth_collection_real(mbp, N_DOCS, seed=seed,
+                                                   iupac=iupac))
 
 
 def _ext_of(text, w: int):
     """The device ext layout build_pfp uploads for `text`."""
     import numpy as np
     from mumemto_tpu_torch.ops import pfp as ops_pfp
+    from mumemto_tpu_torch.ops import suffix as ops_suffix
     ext_np = np.concatenate([np.full(1, ops_pfp.DOLLAR_PFP, np.uint8), text,
                              np.full(w, ops_pfp.DOLLAR_PFP, np.uint8)])
-    ext = np.zeros(ops_pfp.bucket(ext_np.size), np.uint8)
+    ext = np.zeros(ops_suffix.bucket(ext_np.size, lo=1024), np.uint8)
     ext[:ext_np.size] = ext_np
     return ext
 
 
 def phase_card(torch, report):
     from mumemto_tpu_torch.kernels import build
-    smi = _smi()
+    smi = bench.smi()
     nvcc = build.nvcc_path()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[-1]
@@ -286,11 +278,10 @@ def phase_probe(torch, report):
         raise AssertionError(f"toolchain probe failed: {run.stdout} "
                              f"{run.stderr[-2000:]}")
     # the probe's own path, in this process: its launches are counted
-    probe.launches = 0
-    name = probe.check()
-    launches = probe.launches
-    if launches != 1:
-        raise AssertionError(f"probe.check launched add_one {launches} times")
+    name, _s, launches = bench.counted(torch, probe.check)
+    if launches["add_one"] != 1:
+        raise AssertionError(f"probe.check launched add_one "
+                             f"{launches['add_one']} times")
     dev = torch.device("cuda")
     max_err = 0
     big = torch.randint(-2**31, 2**31 - 1, (1 << 26,), dtype=torch.int32,
@@ -620,15 +611,15 @@ def phase_scan(torch, report):
             torch.arange(n // 2, dtype=dtype, device=dev), -1)
         for op in ("max", "min"):
             for reverse in (False, True):
-                scan.launches = 0
-                got = fns[op](x, reverse=reverse)
-                torch.cuda.synchronize()
+                got, _s, launched = bench.counted(
+                    torch, lambda: fns[op](x, reverse=reverse))
                 err = int((got != scan.running_plain(x, op, reverse)).sum())
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-                if err or scan.launches != 1:
+                if err or launched["running_scan"] != 1:
                     raise AssertionError(
                         f"running_{op} reverse={reverse} at {label}: "
-                        f"{err} mismatches, {scan.launches} launches")
+                        f"{err} mismatches, {launched['running_scan']} "
+                        "launches")
                 del got
         bound_ms = 2 * n * x.element_size() / HBM_BYTES_PER_S * 1e3
         case = {"n": n, "dtype": str(dtype), "bound_ms": bound_ms,
@@ -668,12 +659,10 @@ def phase_scan(torch, report):
         opts = options.normalize(rb.num_docs, quiet=True, **kw)
         engine.find_matches(rb, opts, device=dev, backend=backend,
                             show_progress=False)
-        scan.launches = 0
-        engine.find_matches(rb, opts, device=dev, backend=backend,
-                            show_progress=False)
-        torch.cuda.synchronize()
-        out["launches_per_call"][label] = scan.launches
-        if scan.launches == 0:
+        _, _s, launched = bench.counted(torch, lambda: engine.find_matches(
+            rb, opts, device=dev, backend=backend, show_progress=False))
+        out["launches_per_call"][label] = launched["running_scan"]
+        if launched["running_scan"] == 0:
             raise AssertionError(f"{label} launched no running_scan")
     log(f"[scan] launches a call at 8 Mbp: "
         f"{json.dumps(out['launches_per_call'])}")
@@ -706,9 +695,10 @@ def phase_phrases(torch, report):
     from mumemto_tpu_torch.ops import pfp as ops_pfp
     dev = torch.device("cuda")
     nat = native.get_native()
-    out = {"card": _smi(), "sets": {}}
+    out = {"card": bench.smi(), "sets": {}}
     for label, mbp, docs, snp in PHRASE_SETS:
-        rb = _rb_of(_synth_collection(mbp, docs, seed=0, snp_rate=snp))
+        rb = bench.rb_of(bench.synth_collection(mbp, docs, seed=0,
+                                                snp_rate=snp))
         ext_np = _ext_of(rb.text, 10)
         ext = torch.from_numpy(ext_np).to(dev)
         n_text = int(rb.text.size)
@@ -750,7 +740,7 @@ def phase_phrases(torch, report):
                           "depth": d,
                           "mismatches": int((bucket != want).sum())})
         phrases.tail_rank = timed_tail
-        bench.reset_launches()
+        trace.drain()
         trace.enable()
         try:
             with trace.call("engine.find_matches"):
@@ -759,8 +749,9 @@ def phase_phrases(torch, report):
         finally:
             trace.disable()
             phrases.tail_rank = real_tail
+        launches = bench.launch_counts(trace.totals())
         (counters,) = trace.drain()["counters"].values()
-        row["launches"] = {k: v for k, v in bench.launch_counts().items()
+        row["launches"] = {k: v for k, v in launches.items()
                            if k in phrases.KERNELS}
         row["rounds"] = counters[ops_pfp.SORT_ROUNDS_COUNTER]
         row["collisions"] = counters[ops_pfp.SORT_COLLISIONS]
@@ -830,27 +821,22 @@ def phase_phrases(torch, report):
 
 
 def _drive(torch, label, rb, opts, mbp, backend="pfp"):
-    """One path end to end on the card: a cold and a warm find_matches with
-    the kernels' launch counts set to 0 just before and read just after,
-    then a live native/baseline_cpu run with the same options. The match
-    count must equal the baseline's and be above 0. The PFP backend must
+    """One path end to end on the card: a cold and a warm find_matches,
+    their kernel launches counted (bench.counted), then a live
+    native/baseline_cpu run with the same options. The match count must
+    equal the baseline's and be above 0. The PFP backend must
     have launched the KR kernel in both runs, the direct backend never;
     both must have launched the running max / min kernel.
     Returns (record, warm result)."""
     from mumemto_tpu_torch import engine
-    bench.reset_launches()
-    t0 = time.perf_counter()
-    cold = engine.find_matches(rb, opts, device="cuda", backend=backend)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
+    cold, cold_s, l_cold = bench.counted(torch, lambda: engine.find_matches(
+        rb, opts, device="cuda", backend=backend))
     torch.cuda.reset_peak_memory_stats()
-    timer = StageTimer(torch)
-    t0 = time.perf_counter()
-    res = engine.find_matches(rb, opts, device="cuda", phase=timer,
-                              backend=backend)
-    wall = time.perf_counter() - t0
+    timer = bench.StageTimer(torch)
+    res, wall, l_warm = bench.counted(torch, lambda: engine.find_matches(
+        rb, opts, device="cuda", phase=timer, backend=backend))
     peak = torch.cuda.max_memory_allocated()
-    launches = bench.launch_counts()
+    launches = {k: l_cold[k] + l_warm[k] for k in l_cold}
     if backend == "pfp" and launches["kr_break_mask"] < 2:
         raise AssertionError(f"{label}: KR kernel launched "
                              f"{launches['kr_break_mask']} times in two runs")
@@ -860,8 +846,8 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     _scanned(label, launches)
     if res.output_bytes() != cold.output_bytes():
         raise AssertionError(f"{label}: two runs disagree")
-    base_mbp_s, base_matches = _run_cpu_baseline(rb.text, rb.seq_lengths,
-                                                 opts, mbp)
+    base_mbp_s, base_matches = bench.run_cpu_baseline(rb.text, rb.seq_lengths,
+                                                      opts, mbp)
     entry = {"label": label, "backend": backend, "mbp": mbp,
              "num_docs": rb.num_docs, "text_chars": int(rb.text.size),
              "f": opts.max_doc_freq, "F": opts.max_total_freq,
@@ -974,7 +960,7 @@ def _direct_index(torch, rb) -> dict:
     from mumemto_tpu_torch.ops import pfp as ops_pfp
     from mumemto_tpu_torch.ops import suffix as ops_suffix
     n_real = int(rb.text.size)
-    n = engine.pad_size(n_real)
+    n = ops_suffix.bucket(n_real + 4, lo=4096)  # the direct backend's pad
     text_np = np.zeros(n, np.uint8)
     text_np[:n_real] = rb.text
     seed_thr, lcp_thr = ops_pfp.seed_thresholds(
@@ -1036,15 +1022,15 @@ def phase_routes(torch, report, pfp_mums: bytes):
     cuda = engine.resolve("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         pre = os.path.join(tmp, "ck")
-        _, s_P, l_P = _counted(
+        _, s_P, l_P = bench.counted(
             torch, lambda: ops_pfp.write_parse_files(rb, pre, cuda))
-        t_p = StageTimer(torch)
-        res_p, s_p, l_p = _counted(torch, lambda: engine.find_matches(
+        t_p = bench.StageTimer(torch)
+        res_p, s_p, l_p = bench.counted(torch, lambda: engine.find_matches(
             rb_meta, opts, device=cuda, parse_prefix=pre, phase=t_p))
         sizes_P = {ext: os.path.getsize(pre + ext)
                    for ext in (".dict", ".parse")}
-        t_A = StageTimer(torch)
-        res_A, s_A, l_A = _counted(torch, lambda: engine.find_matches(
+        t_A = bench.StageTimer(torch)
+        res_A, s_A, l_A = bench.counted(torch, lambda: engine.find_matches(
             rb, opts, device=cuda, arrays_out_prefix=pre, phase=t_A))
         sizes_A = {ext: os.path.getsize(pre + ext)
                    for ext in (".sa", ".lcp", ".bwt")}
@@ -1056,7 +1042,7 @@ def phase_routes(torch, report, pfp_mums: bytes):
             return engine.find_matches_from_arrays(
                 sa, lcp, bwt, rb_meta.doc_array(sa), rb_meta, opts,
                 device=cuda)
-        res_a, s_a, l_a = _counted(torch, replay)
+        res_a, s_a, l_a = bench.counted(torch, replay)
     rows = int(rb.text.size)
     out["-P -p"] = {"-P_s": s_P, "-P_launches": l_P, "-p_s": s_p,
                     "-p_stages_s": t_p.stages, "-p_launches": l_p,
@@ -1123,7 +1109,7 @@ def phase_bytes(torch, report):
     rng = np.random.default_rng(3)
     checked = []
     for label, with_n in (("acgt", False), ("with N", True)):
-        docs = _synth_collection(0.003, 3, seed=2, snp_rate=0.004)
+        docs = bench.synth_collection(0.003, 3, seed=2, snp_rate=0.004)
         if with_n:
             docs = [np.where(rng.random(d.size) < 0.02, ord("N"), d
                              ).astype(np.uint8) for d in docs]
@@ -1218,7 +1204,7 @@ def _touches_terminal(rec, doc_lens) -> bool:
                for o, dl in zip(offs, doc_lens) if o >= 0)
 
 
-def _partition_spy(torch, mumemtom, kr_mask, parts):
+def _partition_spy(torch, mumemtom, parts):
     """A scan_partition that records each partition's docs, seconds, KR
     launches and peak device memory (allocated and reserved, from an
     emptied cache) in `parts`."""
@@ -1228,12 +1214,10 @@ def _partition_spy(torch, mumemtom, kr_mask, parts):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        before = kr_mask.launches
-        t0 = time.perf_counter()
-        out = real(files, pfx, **kw)
-        torch.cuda.synchronize()
-        parts.append({"docs": len(files), "s": time.perf_counter() - t0,
-                      "kr_launches": kr_mask.launches - before,
+        out, s, launched = bench.counted(torch,
+                                         lambda: real(files, pfx, **kw))
+        parts.append({"docs": len(files), "s": s,
+                      "kr_launches": launched["kr_break_mask"],
                       "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
                       "peak_reserved_bytes":
                           torch.cuda.max_memory_reserved()})
@@ -1252,18 +1236,17 @@ def phase_slice(torch, report, res_8mbp, res_f3, work):
     import tempfile
     import numpy as np
     from mumemto_tpu_torch import cli, library, properties
-    from mumemto_tpu_torch.kernels import kr_mask
     from mumemto_tpu_torch.parallel import mumemtom
     out = {"paths": {}}
-    docs = _synth_collection(8, N_DOCS)
+    docs = bench.synth_collection(8, N_DOCS)
     seqs = [[fwd.tobytes()] for fwd in docs]
-    lib, s, lm = _counted(torch, lambda: library.mum(seqs, device="cuda"))
+    lib, s, lm = bench.counted(torch, lambda: library.mum(seqs, device="cuda"))
     same = (np.array_equal(lib.match_lengths, res_8mbp.lengths)
             and np.array_equal(lib.offsets, res_8mbp.offsets)
             and np.array_equal(lib.strands, res_8mbp.strands > 0))
     out["library.mum"] = {"s": s, "matches": len(lib), "launches": lm,
                           "arrays_equal_phase5": same}
-    lib_m, s, lmm = _counted(torch, lambda: library.mem(
+    lib_m, s, lmm = bench.counted(torch, lambda: library.mem(
         seqs, max_doc_freq=3, device="cuda"))
     out["library.mem -f 3"] = {"s": s, "matches": len(lib_m),
                                "launches": lmm}
@@ -1285,11 +1268,11 @@ def phase_slice(torch, report, res_8mbp, res_f3, work):
 
     doc_lens = [int(d.size) for d in docs]
     with contextlib.nullcontext(work) as tmp:
-        fastas = _write_fastas(docs, tmp)
+        fastas = bench.write_fastas(docs, tmp)
         union = os.path.join(tmp, "union")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        rc, s, lu = _counted(torch, lambda: cli.main(
+        rc, s, lu = bench.counted(torch, lambda: cli.main(
             fastas + ["-o", union]))
         peak_union = torch.cuda.max_memory_allocated()
         want = _mums_set(union + ".mums", N_DOCS)
@@ -1303,10 +1286,10 @@ def phase_slice(torch, report, res_8mbp, res_f3, work):
         for anchor in (True, False):
             label = "mumemtom " + ("anchor" if anchor else "string")
             parts = []
-            real, spy = _partition_spy(torch, mumemtom, kr_mask, parts)
+            real, spy = _partition_spy(torch, mumemtom, parts)
             mumemtom.scan_partition = spy
             try:
-                path, s, lp = _counted(
+                path, s, lp = bench.counted(
                     torch, lambda: mumemtom.run_partitioned_files(
                         fastas, os.path.join(tmp, label.split()[1]),
                         num_partitions=2, anchor=anchor, device="cuda"))
@@ -1358,7 +1341,7 @@ def phase_slice(torch, report, res_8mbp, res_f3, work):
         torch.cuda.set_per_process_memory_fraction(cap / total)
         try:
             with contextlib.redirect_stderr(err):
-                rc, s, lf = _counted(torch, lambda: cli.main(
+                rc, s, lf = bench.counted(torch, lambda: cli.main(
                     fastas + ["-o", oom_out]))
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0)
@@ -1381,17 +1364,19 @@ def phase_slice(torch, report, res_8mbp, res_f3, work):
         out["paths"]["oom fallback"] = lf
 
     # the merge subcommand at 1 Mbp: its files on cuda == on cpu
-    docs1 = _synth_collection(1, N_DOCS, seed=1)
+    docs1 = bench.synth_collection(1, N_DOCS, seed=1)
     out["merge 1mbp"] = {}
     with tempfile.TemporaryDirectory() as tmp:
-        fastas = _write_fastas(docs1, tmp)
+        fastas = bench.write_fastas(docs1, tmp)
         for anchor, exts in ((True, (".mums", ".lengths", ".athresh")),
                              (False, (".mums", ".lengths", ".thresh",
                                       ".thresh_rev"))):
             label = "anchor" if anchor else "string"
             pre = os.path.join(tmp, label)
-            _, s, lp = _counted(torch, lambda: mumemtom.run_partitioned_files(
-                fastas, pre, num_partitions=2, anchor=anchor, device="cuda"))
+            _, s, lp = bench.counted(
+                torch, lambda: mumemtom.run_partitioned_files(
+                    fastas, pre, num_partitions=2, anchor=anchor,
+                    device="cuda"))
             t0 = time.perf_counter()
             rc = cli.main(["merge", f"{pre}_part0.mums", f"{pre}_part1.mums",
                            "-o",
@@ -1428,12 +1413,12 @@ def _drive_sharded(torch, label, rb, opts, nshards, want_bytes, M,
     both runs must equal want_bytes. Returns (record, warm result)."""
     from mumemto_tpu_torch.parallel import mesh, seqpfp
     devices = mesh.seq_devices(nshards, "cuda")
-    cold, cold_s, l_cold = _counted(
+    cold, cold_s, l_cold = bench.counted(
         torch, lambda: seqpfp.find_matches_seq_sharded(
             rb, opts, devices, M=M, shard_dict=shard_dict))
     torch.cuda.reset_peak_memory_stats()
-    timer = SumTimer(torch)
-    res, wall, l_warm = _counted(
+    timer = bench.SumTimer(torch)
+    res, wall, l_warm = bench.counted(
         torch, lambda: seqpfp.find_matches_seq_sharded(
             rb, opts, devices, M=M, phase=timer, shard_dict=shard_dict))
     entry = {"label": label, "shards": nshards, "shard_dict": shard_dict,
@@ -1484,7 +1469,7 @@ def _capi(torch, report_out):
         raise AssertionError(f"capi: the library did not build: "
                              f"{built.stdout} {built.stderr[-2000:]}")
     docs = [d.tobytes().decode() for d in
-            _synth_collection(0.18, 3, seed=5, snp_rate=0.002)]
+            bench.synth_collection(0.18, 3, seed=5, snp_rate=0.002)]
     with tempfile.TemporaryDirectory() as tmp:
         exe = os.path.join(tmp, "test_capi")
         cc = subprocess.run(
@@ -1508,7 +1493,7 @@ def _capi(torch, report_out):
     if run.returncode != 0:
         raise AssertionError(f"capi: the C program failed: "
                              f"{run.stderr[-2000:]}")
-    want, s, launches = _counted(
+    want, s, launches = bench.counted(
         torch, lambda: library.mum([[d] for d in docs], device="cuda"))
     lines = run.stdout.splitlines()
     if len(lines) != len(want) or not lines:
@@ -1540,8 +1525,8 @@ def phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work):
 
     # the same call unsharded, for the wall and the peak beside it
     torch.cuda.reset_peak_memory_stats()
-    timer = StageTimer(torch)
-    single, s, l1 = _counted(torch, lambda: engine.find_matches(
+    timer = bench.StageTimer(torch)
+    single, s, l1 = bench.counted(torch, lambda: engine.find_matches(
         rb, opts, device="cuda", phase=timer))
     out["single device 8 Mbp"] = {
         "wall_s": s, "stages_s": timer.stages, "launches": l1,
@@ -1605,7 +1590,7 @@ def phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work):
     # the CLI: --seq-shards 4 on phase 10's FASTAs against its union run
     fastas = [os.path.join(work, f"d{i}.fa") for i in range(N_DOCS)]
     sharded = os.path.join(work, "seq4")
-    rc, s, lc = _counted(torch, lambda: cli.main(
+    rc, s, lc = bench.counted(torch, lambda: cli.main(
         fastas + ["-o", sharded, "--seq-shards", "4"]))
     with open(sharded + ".mums", "rb") as a, \
             open(os.path.join(work, "union.mums"), "rb") as b:
@@ -1622,7 +1607,7 @@ def phase_sharded(torch, report, res_8mbp, res_f3, mums_32mbp, work):
     # merge --collective on phase 10's anchor partitions (5 + 4 docs)
     parts = [os.path.join(work, f"anchor_part{i}.mums") for i in range(2)]
     coll = os.path.join(work, "anchor_collective")
-    rc, s, lm = _counted(torch, lambda: cli.main(
+    rc, s, lm = bench.counted(torch, lambda: cli.main(
         ["merge", *parts, "-o", coll, "--collective", "--device", "cuda"]))
     sizes = {}
     for ext in (".mums", ".athresh", ".lengths"):
@@ -1823,10 +1808,11 @@ def _partition_mesh(torch, out):
     bytes, the step's total, the one-collection scan, the capacity error."""
     import numpy as np
     from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.ops import suffix as ops_suffix
     from mumemto_tpu_torch.parallel import partition
     num_docs, M = 2, 1 << 14
     rbs = [_bench_rb(1, seed=seed, n_docs=num_docs) for seed in range(4)]
-    n = engine.pad_size(max(int(rb.text.size) for rb in rbs))
+    n = ops_suffix.bucket(max(int(rb.text.size) for rb in rbs) + 4, lo=4096)
     texts = np.zeros((len(rbs), n), np.uint8)
     doc_ends = np.zeros((len(rbs), num_docs), np.int32)
     for p, rb in enumerate(rbs):
@@ -1835,7 +1821,7 @@ def _partition_mesh(torch, out):
     mesh = partition.make_mesh(4)
     fn = partition.compile_partitioned_matches(mesh, num_docs, M=M)
     torch.cuda.reset_peak_memory_stats()
-    got, s, launches = _counted(torch, lambda: fn(texts, doc_ends))
+    got, s, launches = bench.counted(torch, lambda: fn(texts, doc_ends))
     peak = torch.cuda.max_memory_allocated()
     counts, ps, pe, pL, w_sa, w_da = (x.cpu().numpy() for x in got)
     opts = options.normalize(num_docs, quiet=True)
@@ -1856,15 +1842,15 @@ def _partition_mesh(torch, out):
         matches.append(want.num_matches)
         sizes.append(len(want.output_bytes()))
     step = partition.compile_partitioned_step(mesh, texts.shape, num_docs)
-    (total, step_counts, longest), step_s, l_step = _counted(
+    (total, step_counts, longest), step_s, l_step = bench.counted(
         torch, lambda: step(texts, doc_ends))
     if int(total) != int(counts.sum()) or \
             step_counts.cpu().tolist() != counts.tolist():
         raise AssertionError(f"partitioned step: total {int(total)}, "
                              f"counts {counts.tolist()}")
     scan = partition.compile_sharded_scan(mesh, n, num_docs, M=M)
-    one, scan_s, l_scan = _counted(torch, lambda: scan(texts[0],
-                                                       doc_ends[0]))
+    one, scan_s, l_scan = bench.counted(torch, lambda: scan(texts[0],
+                                                            doc_ends[0]))
     m0 = int(counts[0])
     valid = (ps[0, :m0, None] + np.arange(num_docs)) < pe[0, :m0, None]
     row0 = [ps[0, :m0], pe[0, :m0], pL[0, :m0], w_sa[0, :m0][valid],
@@ -1904,8 +1890,8 @@ t0 = time.perf_counter()
 sys.path.insert(0, sys.argv[5])
 import torch
 import chip_smoke
-from mumemto_tpu_torch.kernels import kr_mask, phrases, probe
-from mumemto_tpu_torch.kernels import scan as scan_kernel
+from mumemto_tpu_torch import bench, trace
+from mumemto_tpu_torch.kernels import kr_mask
 from mumemto_tpu_torch.parallel import dcn, mumemtom
 rank, port, prefix = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 files = open(sys.argv[4]).read().split()
@@ -1939,20 +1925,18 @@ def break_mask(ext, *a):
     return real_kr(ext, *a)
 mumemtom.scan_partition = scan
 kr_mask.break_mask = break_mask
-kr_mask.launches = probe.launches = scan_kernel.launches = 0
-phrases.launches.update(dict.fromkeys(phrases.KERNELS, 0))
 dcn.initialize("127.0.0.1:" + port, nproc, rank)
+trace.enable()
 t1 = time.perf_counter()
 dcn.run_partitioned_dcn(files, prefix, anchor=True, num_partitions=nparts,
                         collective=collective, device=device)
+launches = bench.launch_counts(trace.totals())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mumemto_tpu", "bench"))
 assert not bad, bad
 print("DCN_WORKER " + json.dumps({
     "rank": rank, "device": device, "scanned": scanned, "partitions": parts,
-    "kr_break_mask": kr_mask.launches, "kr_devices": kr_devices,
-    "add_one": probe.launches, "running_scan": scan_kernel.launches,
-    **phrases.launches, "start_s": t1 - t0,
+    **launches, "kr_devices": kr_devices, "start_s": t1 - t0,
     "run_s": time.perf_counter() - t1,
     "peak_alloc_bytes":
         torch.cuda.max_memory_allocated(device) if card else 0}))
@@ -2084,8 +2068,9 @@ def _dcn_four(torch, out, work, fastas):
     run_partitioned_files with 4 partitions."""
     from mumemto_tpu_torch.parallel import mumemtom
     single = os.path.join(work, "anchor4")
-    path, s, launches = _counted(torch, lambda: mumemtom.run_partitioned_files(
-        fastas, single, num_partitions=4, anchor=True, device="cuda"))
+    path, s, launches = bench.counted(
+        torch, lambda: mumemtom.run_partitioned_files(
+            fastas, single, num_partitions=4, anchor=True, device="cuda"))
     _kr_used("MumemtoM 4 anchor partitions", launches)
     out["paths"]["MumemtoM 4 anchor partitions"] = launches
     worker, filelist, env = _dcn_setup(work, fastas, "dcn4")
@@ -2201,9 +2186,10 @@ def _real_row(torch, tag, label, rb, opts, mbp, acgt, variant):
 
 
 def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
-    """The real-alphabet variant of the main path on _synth_collection_real
-    (N gaps; with iupac the ten ambiguity codes): the 7-bit seed and the
-    rank-descent dictionary LCP, which any input with an N takes. Rows a-g
+    """The real-alphabet variant of the main path on
+    bench.synth_collection_real (N gaps; with iupac the ten ambiguity
+    codes): the 7-bit seed and the rank-descent dictionary LCP, which any
+    input with an N takes. Rows a-g
     of the module docstring's phase 13; every comparison raises on a
     difference and nothing is caught. report["e2e"] and report["mem"] hold
     the ACGT runs of the same call that each row is printed beside."""
@@ -2221,7 +2207,7 @@ def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
             "f3": report.get("mem", {}).get(f"f3 {mbp}mbp")}
 
     # the complement table on the codes: R<->Y, K<->M, B<->V, D<->H, S, W, N
-    codes = np.frombuffer(b"N" + IUPAC_CODES, np.uint8)
+    codes = np.frombuffer(b"N" + bench.IUPAC_CODES, np.uint8)
     if refbuilder.revcomp(codes).tobytes() != b"BDHVWSKMRYN":
         raise AssertionError("refbuilder.revcomp on the IUPAC codes: "
                              f"{refbuilder.revcomp(codes).tobytes()}")
@@ -2282,8 +2268,8 @@ def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
         label = f"real {alpha} -g {mbp} Mbp"
         engine.find_matches(rb_g, opts, device="cuda", backend="direct")
         torch.cuda.reset_peak_memory_stats()
-        timer = StageTimer(torch)
-        res_g, wall, lg = _counted(torch, lambda: engine.find_matches(
+        timer = bench.StageTimer(torch)
+        res_g, wall, lg = bench.counted(torch, lambda: engine.find_matches(
             rb_g, opts, device="cuda", backend="direct", phase=timer))
         row_e = {"label": label, "mbp": mbp, "wall_s": wall,
                  "stages_s": timer.stages, "matches": res_g.num_matches,
@@ -2421,16 +2407,16 @@ def _scale_runs(torch, label, run, mbp, split=None):
     probe kernel never. Each runs under a stage timer that also keeps each
     stage's peak allocation (_AllCardsTimer, one card here): `run` takes
     the timer as its phase, or with `split` ({name: (module, attribute)})
-    a _Split times those functions and hands the timer to find_matches.
+    a bench.Split times those functions and hands the timer to find_matches.
     Returns (record of the last run, its result)."""
     walls, launches = [], []
     with _PrepSpy() as spy:
         for last in (False, True):
             timer = _AllCardsTimer(torch)
-            spl = _Split(torch, split, phase=timer) if split else None
+            spl = bench.Split(torch, split, phase=timer) if split else None
             torch.cuda.reset_peak_memory_stats()
             with spl or contextlib.nullcontext():
-                res, s, lc = _counted(torch, lambda: run(timer))
+                res, s, lc = bench.counted(torch, lambda: run(timer))
             walls.append(s)
             launches.append(lc)
             if not last:
@@ -2477,11 +2463,12 @@ def _baselines_together(jobs) -> dict:
     started together, one core each (the binary built first, so that no two
     builds race): {label: (seconds, matches)}."""
     from concurrent.futures import ThreadPoolExecutor
-    _build_cpu_baseline()
+    bench.build_cpu_baseline()
 
     def one(job):
         _label, rb, opts, mbp = job
-        mbp_s, matches = _run_cpu_baseline(rb.text, rb.seq_lengths, opts, mbp)
+        mbp_s, matches = bench.run_cpu_baseline(rb.text, rb.seq_lengths,
+                                                opts, mbp)
         return mbp / mbp_s, matches
     with ThreadPoolExecutor(len(jobs)) as pool:
         outs = list(pool.map(one, jobs))
@@ -2497,23 +2484,24 @@ def _refused(torch, tag, label, rb, opts):
     such)."""
     import gc
     from mumemto_tpu_torch import cli, engine
-    with _PrepSpy() as spy:
-        bench.reset_launches()
-        t0 = time.perf_counter()
+
+    def scan():
+        """(None, the match count), or (the refusal, None)."""
         try:
             res = engine.find_matches(rb, opts, device="cuda")
         except Exception as e:
             err = cli._too_big(e)
             if err is None:
                 raise
-        else:
-            err, matches = None, res.num_matches
-            del res
+            return err, None
+        return None, res.num_matches
+    with _PrepSpy() as spy:
+        t0 = time.perf_counter()
+        (err, matches), _s, launches = bench.counted(torch, scan)
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         s = time.perf_counter() - t0
-    launches = bench.launch_counts()
     nd = spy.sizes[0]["nd"]
     flat = _flat_sizes(spy) if any(n == nd for n, _ in spy.rmq) else {}
     entry = {"label": label, "num_docs": rb.num_docs,
@@ -2551,17 +2539,16 @@ def _refused_text(torch, num_docs: int):
                     use_revcomp=True, input_files=[], multifasta_names=[],
                     multifasta_lengths=[])
     opts = options.normalize(num_docs, quiet=True)
-    bench.reset_launches()
-    t0 = time.perf_counter()
-    try:
-        engine.find_matches(rb, opts, device="cuda")
-    except ops_pfp.ScanSizeError as e:
-        err, why = str(e), cli._too_big(e)
-    else:
+
+    def refused():
+        try:
+            engine.find_matches(rb, opts, device="cuda")
+        except ops_pfp.ScanSizeError as e:
+            return str(e), cli._too_big(e)
         raise AssertionError(f"a text of {n} characters was not refused")
+    (err, why), s, launches = bench.counted(torch, refused)
     entry = {"label": f"a text of 2^31 characters, {num_docs} docs",
-             "text_chars": n, "s": time.perf_counter() - t0,
-             "launches": bench.launch_counts(), "refused": True,
+             "text_chars": n, "s": s, "launches": launches, "refused": True,
              "error": err}
     if "int32 phrase coordinates" not in err or why != err or \
             _kr_of(entry["launches"]) != {"kr_break_mask": 0, "add_one": 0}:
@@ -2594,8 +2581,8 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
     n_small, n_big = SCALE_DOCS
 
     # a, b: 10 documents, partial multi-MUMs (-k -1) and -f 3
-    docs_a = _synth_collection(n_small * doc_mbp, n_small, seed=0)
-    rb_a = _rb_of(docs_a)
+    docs_a = bench.synth_collection(n_small * doc_mbp, n_small, seed=0)
+    rb_a = bench.rb_of(docs_a)
     for key, kw in (("a", {"num_distinct_docs": -1}),
                     ("b", {"rare_freq": 3, "max_mem_freq": 0})):
         opts = options.normalize(n_small, quiet=True, **kw)
@@ -2610,12 +2597,12 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
         jobs.append((key, rb_a, opts, n_small * doc_mbp))
 
     # c: 20 documents from 20 FASTAs through the CLI, strict MUMs
-    docs_c = _synth_collection(n_big * doc_mbp, n_big, seed=0)
-    rb_c = _rb_of(docs_c)
+    docs_c = bench.synth_collection(n_big * doc_mbp, n_big, seed=0)
+    rb_c = bench.rb_of(docs_c)
     doc_lens = [int(d.size) for d in docs_c]
     opts_c = options.normalize(n_big, quiet=True)
     with tempfile.TemporaryDirectory() as work:
-        fastas = _write_fastas(docs_c, work)
+        fastas = bench.write_fastas(docs_c, work)
         union = os.path.join(work, "union")
 
         cli_fns = {"fasta": (refbuilder, "build_from_files"),
@@ -2638,9 +2625,9 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
 
         # d: MumemtoM, 2 anchor partitions in one process, anchor merge
         parts = []
-        real, spy = _partition_spy(torch, mumemtom, kr_mask, parts)
-        timer = SumTimer(torch)
-        split = _Split(torch, {
+        real, spy = _partition_spy(torch, mumemtom, parts)
+        timer = bench.SumTimer(torch)
+        split = bench.Split(torch, {
             **cli_fns,
             "merge": (mumemtom, "merge_partition_outputs"),
             "merge_read": (merge_mod, "parse_candidate"),
@@ -2649,7 +2636,7 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
         mumemtom.scan_partition = spy
         try:
             with split, _PrepSpy() as prep:
-                path, s, lp = _counted(
+                path, s, lp = bench.counted(
                     torch, lambda: mumemtom.run_partitioned_files(
                         fastas, anchor, num_partitions=2, anchor=True,
                         device="cuda"))
@@ -2736,8 +2723,8 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
     # f: past the range-min's int32 flat index, row a's documents at 1%
     # divergence (BASELINE config 2 as published); then a refusal that
     # remains, a text past the int32 phrase coordinates
-    rb = _rb_of(_synth_collection(n_small * doc_mbp, n_small, seed=0,
-                                  snp_rate=0.01))
+    rb = bench.rb_of(bench.synth_collection(n_small * doc_mbp, n_small, seed=0,
+                                            snp_rate=0.01))
     opts = options.normalize(n_small, quiet=True, num_distinct_docs=-1)
     entry, res = _scale_scan(torch, "f", f"{n_small} docs x {doc_mbp:g} Mbp "
                              "at 1% SNPs -k -1", rb, opts, n_small * doc_mbp)
@@ -2771,8 +2758,8 @@ def phase_scale(torch, report, doc_mbp=5.0, bench_mbp=(64, 96),
     report["scale"] = out
 
 
-class _AllCardsTimer(SumTimer):
-    """A SumTimer that waits for every visible card, not the current one,
+class _AllCardsTimer(bench.SumTimer):
+    """A bench.SumTimer that waits for every visible card, not the current one,
     and keeps each card's peak allocation within each stage."""
 
     def __init__(self, torch):
@@ -2781,7 +2768,7 @@ class _AllCardsTimer(SumTimer):
 
     def __call__(self, name):
         torch = self.torch
-        _sync_all(torch)
+        bench.sync_all(torch)
         super().__call__(name)
         before = self.stage_peaks.get(name, [0] * torch.cuda.device_count())
         self.stage_peaks[name] = [
@@ -2814,7 +2801,7 @@ def _card_peaks(torch):
 
 
 def _reset_peaks(torch):
-    _sync_all(torch)
+    bench.sync_all(torch)
     for i in range(torch.cuda.device_count()):
         torch.cuda.reset_peak_memory_stats(i)
 
@@ -2838,14 +2825,15 @@ def _cards_kr(torch, out, cards, c40, ranks, kr_mbp):
     from mumemto_tpu_torch.kernels import kr_mask
     rows = []
     inputs = ((f"bench {kr_mbp:g} Mbp", _bench_rb(kr_mbp).text),
-              (f"C{len(c40)} partition 0", _rb_of([c40[0]] + c40[1::ranks]).text))
+              (f"C{len(c40)} partition 0",
+               bench.rb_of([c40[0]] + c40[1::ranks]).text))
     for tag, text in inputs:
         ext_np, n_real = _ext_of(text, 10), int(text.size)
         for dev in cards:
             ext = torch.from_numpy(ext_np).to(dev)
-            before = kr_mask.launches
-            m_k, c_k = kr_mask.break_mask(ext, n_real, 10, 100)
-            launched = kr_mask.launches - before
+            (m_k, c_k), _s, launches = bench.counted(
+                torch, lambda: kr_mask.break_mask(ext, n_real, 10, 100))
+            launched = launches["kr_break_mask"]
             m_p, c_p = kr_mask.break_mask_plain(ext, n_real, 10, 100)
             err = max(int((m_k != m_p).sum()), abs(int(c_k) - int(c_p)))
             del m_k, m_p
@@ -2876,18 +2864,17 @@ def _cards_m1(torch, out, work, docs, doc_mbp, devices):
     document's first or last base (counted). Returns what rows s and c
     take from it."""
     from mumemto_tpu_torch import engine, options
-    from mumemto_tpu_torch.kernels import kr_mask
     from mumemto_tpu_torch.parallel import mumemtom
     n, nparts = len(docs), len(devices)
     d = os.path.join(work, "m1")
     os.makedirs(d)
-    fastas = _write_fastas(docs, d)
+    fastas = bench.write_fastas(docs, d)
     doc_lens = [int(x.size) for x in docs]
-    rb = _rb_of(docs)
+    rb = bench.rb_of(docs)
     opts = options.normalize(n, quiet=True)
     _reset_peaks(torch)
     with _PrepSpy() as prep:
-        res, union_s, lu = _counted(torch, lambda: engine.find_matches(
+        res, union_s, lu = bench.counted(torch, lambda: engine.find_matches(
             rb, opts, device="cuda"))
     union_peaks = _card_peaks(torch)
     _kr_used("m1 union", lu)
@@ -2897,11 +2884,11 @@ def _cards_m1(torch, out, work, docs, doc_mbp, devices):
     del res
     want = _mums_set(union + ".mums", n)
     parts = []
-    real, spy = _partition_spy(torch, mumemtom, kr_mask, parts)
+    real, spy = _partition_spy(torch, mumemtom, parts)
     single = os.path.join(d, "single")
     mumemtom.scan_partition = spy
     try:
-        _, single_s, ls = _counted(
+        _, single_s, ls = bench.counted(
             torch, lambda: mumemtom.run_partitioned_files(
                 fastas, single, num_partitions=nparts, anchor=True,
                 device="cuda"))
@@ -2979,8 +2966,8 @@ def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc,
     n, nparts = len(docs), len(devices)
     d = os.path.join(work, key)
     os.makedirs(d)
-    fastas = _write_fastas(docs, d)
-    rb = rb or _rb_of(docs)
+    fastas = bench.write_fastas(docs, d)
+    rb = rb or bench.rb_of(docs)
     opts = options.normalize(n, quiet=True)
     refused = _refused(torch, key, f"C{n} union on one card", rb, opts)
     worker, filelist, env = _dcn_setup(d, fastas, key)
@@ -2988,7 +2975,7 @@ def _cards_m2(torch, out, work, docs, doc_mbp, devices, per_doc,
     wall, ranks, _ = _dcn_run(f"{key} host fold", worker, prefix, filelist,
                               False, env, devices, None, nparts)
     split = mumemtom.auto_partition(fastas, nparts, anchor=True)
-    got = _occ_stats(prefix + ".mums", n, _order_of(fastas, split))
+    got = bench.occ_stats(prefix + ".mums", n, _order_of(fastas, split))
     parts = [p for r in ranks for p in r["partitions"]]
     # the docs a partition may hold with nd <= 2^26 (27 levels), the
     # dictionary growing linearly in its documents
@@ -3061,10 +3048,10 @@ def _runner_probe(torch, cards, launches=4096) -> list:
         def timed(fn):
             walls = []
             for _ in range(3):
-                _sync_all(torch)
+                bench.sync_all(torch)
                 t0 = time.perf_counter()
                 fn()
-                _sync_all(torch)
+                bench.sync_all(torch)
                 walls.append(time.perf_counter() - t0)
             return min(walls)
         recs.append({
@@ -3101,7 +3088,7 @@ def _cards_sharded(torch, out, inputs, shards, tmp, one_card=False,
         opts = options.normalize(rb.num_docs, quiet=True)
         _reset_peaks(torch)
         timer = _AllCardsTimer(torch)
-        res, s, lc = _counted(torch, lambda: engine.find_matches(
+        res, s, lc = bench.counted(torch, lambda: engine.find_matches(
             rb, opts, device="cuda", phase=timer))
         if want is not None and res.output_bytes() != want:
             raise AssertionError(f"s {label}: single-card bytes differ "
@@ -3128,7 +3115,7 @@ def _cards_sharded(torch, out, inputs, shards, tmp, one_card=False,
             _reset_peaks(torch)
             timer = _AllCardsTimer(torch)
             with _CapacitySpy() as cap:
-                res, s, lc = _counted(torch, lambda: sharded(devs, timer))
+                res, s, lc = bench.counted(torch, lambda: sharded(devs, timer))
             same = res.output_bytes() == want
             del res
             worst = max(cap.counts[0])
@@ -3157,13 +3144,13 @@ def _cards_sharded(torch, out, inputs, shards, tmp, one_card=False,
             devs = mesh.seq_devices(n, "cuda")
             for stages in (None, ("parse_side", "analyze")):
                 t0 = time.perf_counter()
-                res, spans = _trace_cards(
+                res, spans = bench.trace_cards(
                     torch, lambda phase: sharded(devs, phase), tmp, stages)
                 rec = {"input": label, "shards": n,
                        "window": "shard stages" if stages else "whole call",
                        "wall_s": time.perf_counter() - t0,
                        "bytes_equal": res.output_bytes() == want,
-                       "device_spans": len(spans), **_busy_overlap(spans)}
+                       "device_spans": len(spans), **bench.busy_overlap(spans)}
                 del res
                 traces.append(rec)
                 log(f"[cards] s trace: {json.dumps(rec)}")
@@ -3185,16 +3172,16 @@ def _cards_collective(torch, out, m1):
     parts = m1["parts"]
     base = os.path.dirname(m1["single"])
     host = os.path.join(base, "c_host")
-    rc_h, host_s, _ = _counted(torch, lambda: cli.main(
+    rc_h, host_s, _ = bench.counted(torch, lambda: cli.main(
         ["merge", *parts, "-o", host]))
     seen = []
     real = collective_merge.collective_fold
 
     def fold(bv, nb, ln, devices):
-        _sync_all(torch)
+        bench.sync_all(torch)
         t0 = time.perf_counter()
         got = real(bv, nb, ln, devices)
-        _sync_all(torch)
+        bench.sync_all(torch)
         seen.append({"devices": [str(d) for d in devices],
                      "n_anchor": int(bv.shape[1]),
                      "s": time.perf_counter() - t0})
@@ -3202,7 +3189,7 @@ def _cards_collective(torch, out, m1):
     coll = os.path.join(base, "c_collective")
     collective_merge.collective_fold = fold
     try:
-        rc, s, lm = _counted(torch, lambda: cli.main(
+        rc, s, lm = bench.counted(torch, lambda: cli.main(
             ["merge", *parts, "-o", coll, "--collective", "--device",
              "cuda"]))
     finally:
@@ -3258,10 +3245,11 @@ def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2,
     import threading
     import numpy as np
     from mumemto_tpu_torch import engine, options
+    from mumemto_tpu_torch.ops import suffix as ops_suffix
     from mumemto_tpu_torch.parallel import partition
     rbs = [_bench_rb(num_docs * doc_mbp, seed=seed, n_docs=num_docs)
            for seed in range(nparts)]
-    n = engine.pad_size(max(int(rb.text.size) for rb in rbs))
+    n = ops_suffix.bucket(max(int(rb.text.size) for rb in rbs) + 4, lo=4096)
     texts = np.zeros((nparts, n), np.uint8)
     doc_ends = np.zeros((nparts, num_docs), np.int32)
     for p, rb in enumerate(rbs):
@@ -3287,7 +3275,8 @@ def _cards_partition(torch, out, doc_mbp, nparts=4, num_docs=2,
         for _ in range(runs):
             seen.clear()
             _reset_peaks(torch)
-            got, s, launches = _counted(torch, lambda: fn(texts, doc_ends))
+            got, s, launches = bench.counted(torch,
+                                             lambda: fn(texts, doc_ends))
             walls.append(s)
             peaks.append(_card_peaks(torch))
             if any(_kr_of(launches).values()):
@@ -3340,7 +3329,7 @@ def _cards_shard_dict(torch, out, mbps):
         _reset_peaks(torch)
         t0 = time.perf_counter()
         single = engine.find_matches(rb, opts, device="cuda")
-        _sync_all(torch)
+        bench.sync_all(torch)
         entry = {"mbp": mbp, "shards": 1, "shard_dict": False,
                  "wall_s": time.perf_counter() - t0,
                  "peak_alloc_bytes": _card_peaks(torch)}
@@ -3360,7 +3349,7 @@ def _cards_shard_dict(torch, out, mbps):
             res = seqpfp.find_matches_seq_sharded(
                 rb, opts, devices, M=8192, phase=timer,
                 shard_dict=shard_dict)
-            _sync_all(torch)
+            bench.sync_all(torch)
             entry = {"mbp": mbp, "shards": nshards,
                      "devices": [str(d) for d in devices],
                      "shard_dict": shard_dict,
@@ -3380,12 +3369,12 @@ def _cards_shard_dict(torch, out, mbps):
 
 def _cards_baseline(out, m2):
     """m2's merged .mums against one native/baseline_cpu run on the union
-    text (the bytes _run_cpu_baseline writes): match count, sum of
+    text (the bytes bench.run_cpu_baseline writes): match count, sum of
     lengths and occurrence hash must agree."""
     t0 = time.perf_counter()
-    base = _cpu_baseline(m2["rb"].text, m2["rb"].seq_lengths, m2["opts"])
+    base = bench.cpu_baseline(m2["rb"].text, m2["rb"].seq_lengths, m2["opts"])
     wall = time.perf_counter() - t0
-    want = _triple(base)
+    want = bench.triple(base)
     out["m2"]["baseline"] = {**base, "wall_s": wall}
     log(f"[cards] m2: baseline_cpu on the union {want} in {wall:.1f} s; "
         f"merged {m2['got']}")
@@ -3398,7 +3387,7 @@ def phase_cards(torch, report, doc_mbp=5.0, card_docs=CARD_DOCS,
                 shard_dict_mbp=(8, 32), kr_mbp=KR_MBP, dcn_device=None):
     """The rows of `--cards` (cards_main), in order: k, m1, m2, s, c, p,
     the shard_dict runs, and m2's baseline last. Collections:
-    _synth_collection(doc_mbp * N, N, seed=0) for N in card_docs (C20 and
+    bench.synth_collection(doc_mbp * N, N, seed=0) for N in card_docs (C20 and
     C40); rank r of m1 and m2 on cuda:{r % cards} (dcn_device: every rank
     there instead). Every comparison raises on a difference."""
     from mumemto_tpu_torch import engine
@@ -3407,8 +3396,8 @@ def phase_cards(torch, report, doc_mbp=5.0, card_docs=CARD_DOCS,
     cards = [engine.resolve(f"cuda:{i}") for i in range(ncards)]
     devices = [dcn_device or f"cuda:{r % ncards}" for r in range(ranks)]
     n20, n40 = card_docs
-    c20 = _synth_collection(n20 * doc_mbp, n20, seed=0)
-    c40 = _synth_collection(n40 * doc_mbp, n40, seed=0)
+    c20 = bench.synth_collection(n20 * doc_mbp, n20, seed=0)
+    c40 = bench.synth_collection(n40 * doc_mbp, n40, seed=0)
     out = report.setdefault("rows", {})
     with tempfile.TemporaryDirectory() as work:
         _cards_kr(torch, out, cards, c40, ranks, kr_mbp)
@@ -3465,7 +3454,7 @@ def _free_gib() -> str:
 
 
 def _wide_docs(total_mbp: float, n_docs: int = WIDE_DOCS):
-    return _synth_collection(total_mbp, n_docs, seed=0, snp_rate=WIDE_SNP)
+    return bench.synth_collection(total_mbp, n_docs, seed=0, snp_rate=WIDE_SNP)
 
 
 def _empty_caches(torch):
@@ -3487,9 +3476,9 @@ def _wide_kr(torch, text, cards, w: int = 10, mod: int = 100) -> dict:
     n_real = int(text.size)
     ext = torch.from_numpy(_ext_of(text, w)).to(cards[0])
     ne = int(ext.numel())
-    before = kr_mask.launches
-    m_k, c_k = kr_mask.break_mask(ext, n_real, w, mod)
-    launched = kr_mask.launches - before
+    (m_k, c_k), _s, launches = bench.counted(
+        torch, lambda: kr_mask.break_mask(ext, n_real, w, mod))
+    launched = launches["kr_break_mask"]
     others = cards[1:] or cards[:1]
     chunk = ne // 8
     mism = total = 0
@@ -3538,11 +3527,11 @@ def _wide_scan(torch, label, rb, opts, nshards, M, cards):
         devs = [cards[r % len(cards)] for r in range(nshards)]
         _reset_peaks(torch)
         timer = _AllCardsTimer(torch)
-        split = _Split(torch, {"emit": (engine, "_emit_mums")}, timer)
+        split = bench.Split(torch, {"emit": (engine, "_emit_mums")}, timer)
         err = None
         with _PrepSpy() as spy, _CapacitySpy() as cap, split:
             try:
-                res, s, lc = _counted(torch, lambda: (
+                res, s, lc = bench.counted(torch, lambda: (
                     seqpfp.find_matches_seq_sharded(rb, opts, devs, M=M,
                                                     phase=timer)))
             except WindowCapacityError as e:
@@ -3593,7 +3582,7 @@ def _written_triple(torch, rec, res, rb, prefix):
     t0 = time.perf_counter()
     engine.write_outputs(res, rb, prefix)
     rec["write_s"] = time.perf_counter() - t0
-    rec["triple"] = _occ_stats(prefix + ".mums", rb.num_docs)
+    rec["triple"] = bench.occ_stats(prefix + ".mums", rb.num_docs)
     return rec["triple"]
 
 
@@ -3604,13 +3593,13 @@ def _wide_rehearsal(torch, out, work, cards, mbp, n_docs, nshards, M):
     a live baseline_cpu run, the KR check of row w on this ext."""
     from mumemto_tpu_torch import engine, options
     docs = _wide_docs(mbp, n_docs)
-    rb = _rb_of(docs)
+    rb = bench.rb_of(docs)
     opts = options.normalize(rb.num_docs, quiet=True)
-    base = _Baseline(rb.text, rb.seq_lengths, opts)
+    base = bench.Baseline(rb.text, rb.seq_lengths, opts)
     try:
         _reset_peaks(torch)
         timer = _AllCardsTimer(torch)
-        single, s1, l1 = _counted(torch, lambda: engine.find_matches(
+        single, s1, l1 = bench.counted(torch, lambda: engine.find_matches(
             rb, opts, device=cards[0], phase=timer))
         one = {"wall_s": s1, "stages_s": timer.stages,
                "peak_alloc_bytes": timer.peaks(), "launches": l1,
@@ -3634,8 +3623,9 @@ def _wide_rehearsal(torch, out, work, cards, mbp, n_docs, nshards, M):
     out["wr"] = rec
     log(f"[wide] wr: one card {s1:.3f} s ({one['matches']} matches, peak "
         f"{_gib(one['peak_alloc_bytes'])}); triple {got}, baseline_cpu "
-        f"{_triple(rec['baseline'])} in {rec['baseline']['wall_s']:.1f} s")
-    if not rec["bytes_equal_single"] or got != _triple(rec["baseline"]) \
+        f"{bench.triple(rec['baseline'])} in "
+        f"{rec['baseline']['wall_s']:.1f} s")
+    if not rec["bytes_equal_single"] or got != bench.triple(rec["baseline"]) \
             or not got["matches"]:
         raise AssertionError(f"wr: bytes equal {rec['bytes_equal_single']}, "
                              f"{got} != baseline_cpu {rec['baseline']}")
@@ -3651,7 +3641,7 @@ def _wide_trace(torch, rb, opts, rec, mums, tmp) -> dict:
     devs = [torch.device(d) for d in rec["devices"]]
     t0 = time.perf_counter()
     try:
-        res, spans = _trace_cards(
+        res, spans = bench.trace_cards(
             torch, lambda phase: seqpfp.find_matches_seq_sharded(
                 rb, opts, devs, M=rec["M"], phase=phase),
             tmp, ("parse_side", "analyze"))
@@ -3664,7 +3654,7 @@ def _wide_trace(torch, rb, opts, rec, mums, tmp) -> dict:
     del res
     trace = {"window": "shard stages", "wall_s": time.perf_counter() - t0,
              "bytes_equal": same, "device_spans": len(spans),
-             **_busy_overlap(spans)}
+             **bench.busy_overlap(spans)}
     log(f"[wide] w trace: {json.dumps(trace)}")
     if not same:
         raise AssertionError("w: the traced scan's bytes differ")
@@ -3700,7 +3690,7 @@ def _wide_row(torch, out, work, rb, fastas, cards, nshards, M):
         refused = None
     except WindowCapacityError as e:
         rc, refused = None, str(e)
-    _sync_all(torch)
+    bench.sync_all(torch)
     route = {"argv_tail": argv[-4:], "s": time.perf_counter() - t0,
              "rc": rc, "refused": refused}
     if refused is None:
@@ -3743,7 +3733,7 @@ class _Attempts:
             what = (f"{kw.get('num_partitions', 2)} partitions"
                     if name == "partitions"
                     else f"scan of {rb_or_files.num_docs} docs")
-            _sync_all(torch)
+            bench.sync_all(torch)
             torch.cuda.reset_peak_memory_stats(self.card)
             t0 = time.perf_counter()
             end = "ok"
@@ -3753,7 +3743,7 @@ class _Attempts:
                 end = f"{type(e).__name__}: {str(e)[:300]}"
                 raise
             finally:
-                _sync_all(torch)
+                bench.sync_all(torch)
                 self.log.append({
                     "what": what, "s": time.perf_counter() - t0,
                     "peak_alloc_bytes":
@@ -3775,7 +3765,8 @@ def _cli_one_card(torch, out, work, fastas, card):
     from mumemto_tpu_torch.parallel import mumemtom
     prefix = os.path.join(work, "f1")
     with _PrepSpy() as spy, _Attempts(torch, card) as att:
-        rc, s, lc = _counted(torch, lambda: cli.main(fastas + ["-o", prefix]))
+        rc, s, lc = bench.counted(torch,
+                                  lambda: cli.main(fastas + ["-o", prefix]))
     rec = {"rc": rc, "wall_s": s, "launches": lc, "attempts": att.log,
            "sizes": spy.sizes}
     rounds = [a for a in att.log if a["what"].endswith("partitions")]
@@ -3784,8 +3775,8 @@ def _cli_one_card(torch, out, work, fastas, card):
         nparts = int(rounds[-1]["what"].split()[0])
         order = _order_of(fastas, mumemtom.auto_partition(
             fastas, nparts, anchor=True))
-        got = rec["triple"] = _occ_stats(prefix + ".mums", len(fastas),
-                                         order)
+        got = rec["triple"] = bench.occ_stats(prefix + ".mums", len(fastas),
+                                              order)
     log(f"[wide] f1: exit {rc} in {s:.1f} s; attempts "
         + "; ".join(f"{a['what']} {a['s']:.1f} s peak "
                     f"{a['peak_alloc_bytes'] / 2**30:.2f} GiB: "
@@ -3808,7 +3799,8 @@ def _wide_dcn(torch, out, work, fastas, devices, nparts):
     wall, ranks, _ = _dcn_run("w2", worker, prefix, filelist, False, env,
                               devices, None, nparts)
     split = mumemtom.auto_partition(fastas, nparts, anchor=True)
-    got = _occ_stats(prefix + ".mums", len(fastas), _order_of(fastas, split))
+    got = bench.occ_stats(prefix + ".mums", len(fastas),
+                          _order_of(fastas, split))
     out["w2"] = {"wall_s": wall, "ranks": ranks, "devices": devices,
                  "partition_docs": [len(p) for p in split], "triple": got}
     log(f"[wide] w2: {len(devices)} ranks, {nparts} partitions, {wall:.3f} "
@@ -3863,10 +3855,11 @@ def phase_wide(torch, report, rows, doc_mbp=WIDE_DOC_MBP, n_docs=WIDE_DOCS,
             _cards_partition(torch, out, p_doc_mbp, runs=p_runs)
             _empty_caches(torch)
         if "m3" in rows:
-            m3_coll = _synth_collection(m3_docs * m3_doc_mbp, m3_docs, seed=0)
-            m3_rb = _rb_of(m3_coll)
-            m3_base = _Baseline(m3_rb.text, m3_rb.seq_lengths,
-                                options.normalize(m3_docs, quiet=True))
+            m3_coll = bench.synth_collection(m3_docs * m3_doc_mbp, m3_docs,
+                                             seed=0)
+            m3_rb = bench.rb_of(m3_coll)
+            m3_base = bench.Baseline(m3_rb.text, m3_rb.seq_lengths,
+                                     options.normalize(m3_docs, quiet=True))
             running.callback(m3_base.close)
         if "wr" in rows:
             _wide_rehearsal(torch, out, work, cards, rehearsal_mbp, n_docs,
@@ -3875,16 +3868,16 @@ def phase_wide(torch, report, rows, doc_mbp=WIDE_DOC_MBP, n_docs=WIDE_DOCS,
         base = None
         if {"w", "wbase", "kw", "f1", "w2"} & rows:
             docs = _wide_docs(n_docs * doc_mbp, n_docs)
-            rb = _rb_of(docs)
-            fastas = _write_fastas(docs, work)
+            rb = bench.rb_of(docs)
+            fastas = bench.write_fastas(docs, work)
             del docs
             report["collection"] = {
                 "docs": n_docs, "mbp": n_docs * doc_mbp,
                 "text_chars": int(rb.text.size), "snp_rate": WIDE_SNP}
             log(f"[wide] collection: {json.dumps(report['collection'])}")
             if "wbase" in rows:
-                base = _Baseline(rb.text, rb.seq_lengths,
-                                 options.normalize(n_docs, quiet=True))
+                base = bench.Baseline(rb.text, rb.seq_lengths,
+                                      options.normalize(n_docs, quiet=True))
                 running.callback(base.close)
         try:
             if "kw" in rows:
@@ -3904,10 +3897,10 @@ def phase_wide(torch, report, rows, doc_mbp=WIDE_DOC_MBP, n_docs=WIDE_DOCS,
         finally:
             if base is not None:
                 rec = out["wbase"] = base.result()
-                log(f"[wide] wbase: baseline_cpu {_triple(rec)}, its own "
+                log(f"[wide] wbase: baseline_cpu {bench.triple(rec)}, its own "
                     f"t_total {rec.get('t_total')} s, {rec['wall_s']:.1f} s "
                     "from its start to its end")
-                baseline = _triple(rec)
+                baseline = bench.triple(rec)
         if triples:
             for key, got in triples.items():
                 if got is not None and got != baseline:
@@ -3920,10 +3913,10 @@ def phase_wide(torch, report, rows, doc_mbp=WIDE_DOC_MBP, n_docs=WIDE_DOCS,
                            M3_PER_DOC, key="m3", rb=m3_rb)
             rec = out["m3"]["baseline"] = m3_base.result()
             log(f"[wide] m3: merged {m3['got']}, baseline_cpu "
-                f"{_triple(rec)}, its own t_total {rec.get('t_total')} s")
-            if m3["got"] != _triple(rec) or not rec["matches"]:
+                f"{bench.triple(rec)}, its own t_total {rec.get('t_total')} s")
+            if m3["got"] != bench.triple(rec) or not rec["matches"]:
                 raise AssertionError(f"m3: merged {m3['got']} != "
-                                     f"baseline_cpu {_triple(rec)}")
+                                     f"baseline_cpu {bench.triple(rec)}")
     report["rows_s"] = time.perf_counter() - t0
     log(f"[wide] the rows took {report['rows_s']:.1f} s")
 
@@ -3938,7 +3931,7 @@ def cards_main(rows=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     ncards = torch.cuda.device_count()
-    report = {"card": _smi(), "cards": ncards, "peer_access": {
+    report = {"card": bench.smi(), "cards": ncards, "peer_access": {
         f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
         for i in range(ncards) for j in range(ncards) if i != j}}
     log(f"peer access: {json.dumps(report['peer_access'])}")

@@ -353,28 +353,35 @@ class Split:
 
 
 def counted(torch, fn):
-    """(fn(), seconds, launch counts) with the counts set to 0 just before
-    fn and read just after."""
-    reset_launches()
-    t0 = time.perf_counter()
-    out = fn()
-    sync_all(torch)
-    return out, time.perf_counter() - t0, launch_counts()
+    """(fn(), seconds, launch counts): fn with tracing on (left as it was
+    found after), its kernel launches read from the counters tracing kept
+    meanwhile. When counted turned tracing on, what was kept is drained
+    before fn and after; otherwise nothing is drained, so calls nest."""
+    from mumemto_tpu_torch import trace
+    was = trace.enable()
+    if not was:
+        trace.drain()
+    before = launch_counts(trace.totals())
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(torch)
+        s = time.perf_counter() - t0
+        after = launch_counts(trace.totals())
+    finally:
+        if not was:
+            trace.disable()
+            trace.drain()
+    return out, s, {k: n - before[k] for k, n in after.items()}
 
 
-def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+def launch_counts(totals: dict) -> dict:
+    """Every kernel's launches in trace.totals()'s counts, by the kernel's
+    name."""
     from mumemto_tpu_torch.kernels import kr_mask, phrases, probe, scan
-    kr_mask.launches = probe.launches = scan.launches = 0
-    phrases.launches.update(dict.fromkeys(phrases.KERNELS, 0))
-
-
-def launch_counts() -> dict:
-    """Every kernel's launch count, by the kernel's name."""
-    from mumemto_tpu_torch.kernels import kr_mask, phrases, probe, scan
-    return {"kr_break_mask": kr_mask.launches, "add_one": probe.launches,
-            "running_scan": scan.launches,
-            **{k: phrases.launches[k] for k in phrases.KERNELS}}
+    counters = {"kr_break_mask": kr_mask.COUNTER, "add_one": probe.COUNTER,
+                "running_scan": scan.COUNTER, **phrases.COUNTERS}
+    return {k: totals.get(c, 0) for k, c in counters.items()}
 
 
 def sorted_on_card(launches: dict, sorts: int) -> bool:

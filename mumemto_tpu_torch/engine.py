@@ -53,16 +53,6 @@ def interval_size_cap(opts: MatchOptions, num_docs: int) -> int | None:
     return 1 << max(cap.bit_length(), 2)
 
 
-def pad_size(n: int, min_pad: int = 4) -> int:
-    """n + min_pad bucketed up to a 0.75 or 1.0 multiple of a power of two,
-    at least 4096: the zero-padded text length of the direct backend."""
-    target = max(n + min_pad, 4096)
-    p = 1 << (target - 1).bit_length()
-    if p // 2 + p // 4 >= target:
-        return p // 2 + p // 4
-    return p
-
-
 @dataclass
 class MatchResults:
     """Compacted, emission-ordered match set + merge metadata."""
@@ -142,11 +132,11 @@ def _phase_logger(devices):
     a list of devices). MUMEMTO_TPU_PROFILE=1 prints each stage's wall time
     to stderr, and an active progress bar advances; each stage then waits
     for every card of `devices` first, so the times are the devices'. With
-    neither it is the no-op, which adds no syncs."""
+    neither it is None, and the call's stages add no syncs."""
     prof = bool(os.environ.get("MUMEMTO_TPU_PROFILE"))
     bar = progress.active()
     if not prof and bar is None:
-        return ops_pfp._noop_phase
+        return None
     if isinstance(devices, torch.device):
         devices = [devices]
     cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
@@ -183,40 +173,34 @@ def find_matches(rb, opts: MatchOptions, device="cuda", pfp_w: int = 10,
     without one, _phase_logger's hook is. show_progress: draw the phase
     bar when progress.enabled() (library callers pass False).
 
-    Each stage is a span of mumemto_tpu_torch.trace (pfp.build, ...,
-    engine.merge) under the call's root span, engine.find_matches; the
+    Each stage is a trace.stage (pfp.build, ..., engine.merge) under the
+    call's root span, engine.find_matches, which carries the hook: the
     hook is called where the stage's span ends."""
     dev = resolve(device)
     # try/finally: a raising scan must not leak the module-global bar
     bar = progress.activate() if show_progress else None
     try:
-        with trace.call("engine.find_matches"):
-            return _find_matches_inner(
-                rb, opts, dev, pfp_w, pfp_mod,
-                phase if phase is not None else _phase_logger(dev), backend,
-                parse_prefix, arrays_out_prefix)
+        hook = phase if phase is not None else _phase_logger(dev)
+        with trace.call("engine.find_matches", hook=hook):
+            return _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod,
+                                       backend, parse_prefix,
+                                       arrays_out_prefix)
     finally:
         if bar is not None:
             progress.deactivate()
 
 
-def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
+def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, backend,
                         parse_prefix, arrays_out_prefix):
     size_cap = interval_size_cap(opts, rb.num_docs)
-    if parse_prefix:
-        with trace.span("pfp.read_parse"):
-            pfp = ops_pfp.pfp_from_parse_files(parse_prefix, dev, w=pfp_w)
-        phase("read_parse")
+    if parse_prefix or backend == "pfp":
+        pfp = ops_pfp.collection_pfp(rb, dev, w=pfp_w, mod=pfp_mod,
+                                     parse_prefix=parse_prefix)
         res, counts, n = ops_pfp.pfp_scan(
             pfp, rb.doc_ends, rb.num_docs, opts.min_match_len,
             opts.num_distinct, opts.max_total_freq, opts.max_doc_freq,
-            size_cap=size_cap, need_ctx=opts.merge, phase=phase)
-    elif backend == "pfp":
-        res, counts, n = ops_pfp.scan_collection_pfp(
-            rb.text, rb.doc_ends, rb.num_docs, opts.min_match_len,
-            opts.num_distinct, opts.max_total_freq, opts.max_doc_freq, dev,
-            w=pfp_w, mod=pfp_mod, size_cap=size_cap, need_ctx=opts.merge,
-            phase=phase)
+            size_cap=size_cap, need_ctx=opts.merge)
+        del pfp  # its device arrays go before the compaction
     elif backend == "direct":
         # the PFP dict stage's alphabet levers; the pad byte 0 is part of
         # the padded text's alphabet
@@ -224,7 +208,8 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
             set(ops_pfp._alphabet(rb.text)) | {0})
         with trace.span("direct.text"):
             n_real = int(rb.text.size)
-            n = pad_size(n_real)
+            # at least 4 zero bytes past the text
+            n = ops_suffix.bucket(n_real + 4, lo=4096)
             text = np.zeros(n, dtype=np.uint8)
             text[:n_real] = rb.text
             text = torch.from_numpy(text).to(dev)
@@ -233,14 +218,13 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
             text, doc_ends, n, rb.num_docs,
             opts.min_match_len, opts.num_distinct, opts.max_total_freq,
             opts.max_doc_freq, size_cap=size_cap, need_ctx=opts.merge,
-            alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr, phase=phase)
+            alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr)
         del text, doc_ends
     else:
         raise ValueError(f"unknown backend {backend!r}: use pfp or direct")
     if arrays_out_prefix:
-        with trace.span("engine.arrays_out"):
+        with trace.stage("engine.arrays_out", "arrays_out"):
             _write_arrays_from_res(res, arrays_out_prefix, rb.num_docs)
-        phase("arrays_out")
 
     results = MatchResults(opts=opts, num_docs=rb.num_docs)
     # a -p resume has no text
@@ -248,10 +232,10 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
                            else sum(rb.seq_lengths))
     doc_offsets, doc_lens = _doc_metadata(rb, opts)
 
-    with trace.span("engine.compact"):
+    with trace.stage("engine.compact", "compact"):
         n_emit, n_cand, n_runs = (int(x) for x in _to_host([counts])[0])
         results.bwt_runs = n_runs
-        M = ops_pipeline.bucket(n_emit)
+        M = ops_suffix.bucket(n_emit, lo=256)
         m = n_emit
         if opts.mum_mode:
             W = rb.num_docs  # distinct docs => window size <= N
@@ -264,11 +248,10 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
             if m:
                 trace.count(trace.READBACKS)
             maxw = int((e0[:m] - s0[:m]).max()) if m else 1
-            W = ops_pipeline.bucket(maxw, lo=8)
+            W = ops_suffix.bucket(maxw, lo=8)
             s, e, L, w_sa, w_da, w_prev = _to_host(
                 ops_pipeline.compact_windows_mem(res, n, M, W, rb.num_docs))
-    phase("compact")
-    with trace.span("engine.emit"):
+    with trace.stage("engine.emit", "emit"):
         valid = (s[:m, None] + np.arange(W)) < e[:m, None]
         if opts.mum_mode:
             _emit_mums(results, s[:m], e[:m], L[:m], w_sa[:m],
@@ -283,17 +266,15 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, phase, backend,
             _emit_mems(results, s[:m][keep], e[:m][keep], L[:m][keep],
                        w_sa[:m][keep], w_da[:m][keep], valid[keep],
                        opts, doc_offsets, doc_lens)
-    phase("emit")
 
     if opts.merge:
-        with trace.span("engine.merge"):
-            Mc = ops_pipeline.bucket(n_cand)
+        with trace.stage("engine.merge", "merge"):
+            Mc = ops_suffix.bucket(n_cand, lo=256)
             has0, sa_first0, prev_ctx, next_ctx = _to_host(
                 ops_pipeline.compact_cand_thresh(res, n, Mc, rb.num_docs))
             _merge_thresholds(results, has0[:n_cand], sa_first0[:n_cand],
                               prev_ctx[:n_cand], next_ctx[:n_cand],
                               doc_offsets, doc_lens)
-        phase("merge")
     return results
 
 
@@ -320,9 +301,9 @@ def _write_arrays_from_res(res, prefix: str, num_docs: int) -> None:
 
 def compute_arrays(rb, device="cuda", padded_n: int | None = None):
     """The direct index of rb's zero-padded text (padded to padded_n, or
-    pad_size) on `device`: numpy (sa, lcp, bwt, da)."""
+    as the direct backend pads it) on `device`: numpy (sa, lcp, bwt, da)."""
     n_real = int(rb.text.size)
-    n = padded_n or pad_size(n_real)
+    n = padded_n or ops_suffix.bucket(n_real + 4, lo=4096)
     text = np.zeros(n, dtype=np.uint8)
     text[:n_real] = rb.text
     dev = resolve(device)

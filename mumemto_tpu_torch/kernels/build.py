@@ -8,7 +8,8 @@ runs without a CUDA toolkit.
 
 A wrapper binds each C entry point once (`function`) and launches it with
 `launch`, which appends the raw handle of PyTorch's current stream on the
-tensor's device (`current_stream`).
+tensor's device (`current_stream`), raises on a CUDA error and counts the
+launch in the kernel's trace counter.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import threading
 
 import torch
+
+from mumemto_tpu_torch import trace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -123,15 +126,22 @@ def current_stream(device_index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
-def launch(fn, t: torch.Tensor, *args) -> int:
+def launch(fn, t: torch.Tensor, *args, counter: str) -> None:
     """fn(*args, stream) for a CUDA tensor t: on t's device, on its current
-    stream; returns fn's CUDA error code. The device guard is entered only
-    when t is not on the current device (a launch must be made with the
-    stream's device current). The current device is read by the private
-    torch._C._cuda_getDevice, which torch.cuda.current_device wraps after
-    its lazy-init check (CUDA is initialized once t exists)."""
+    stream. Raises RuntimeError when fn returns a nonzero CUDA error code,
+    else adds one to the trace counter `counter` (kernels.<name>.launches).
+    The device guard is entered only when t is not on the current device
+    (a launch must be made with the stream's device current). The current
+    device is read by the private torch._C._cuda_getDevice, which
+    torch.cuda.current_device wraps after its lazy-init check (CUDA is
+    initialized once t exists)."""
     dev = t.get_device()
     if dev == torch._C._cuda_getDevice():
-        return fn(*args, current_stream(dev))
-    with torch.cuda.device(dev):
-        return fn(*args, current_stream(dev))
+        rc = fn(*args, current_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, current_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{counter.removesuffix('.launches')} launch "
+                           f"failed: CUDA error {rc}")
+    trace.count(counter)

@@ -18,9 +18,7 @@ from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import build
 
 KR_PRIME = 1999999973  # reference KR window-hash modulus (newscan.hpp:84)
-
-launches = 0  # kernel launches made by break_mask (CPU calls do not count)
-
+COUNTER = "kernels.kr_mask.launches"  # trace counter: one a kernel launch
 
 _fns = None  # (kr_break_mask, its shared-memory tile's max w), bound once
 
@@ -29,8 +27,8 @@ def launcher():
     """(kr_break_mask, max_w): the C launcher of csrc/kr_mask.cu, built and
     bound at the first call, and the largest w it takes. The launcher's
     arguments are (ext, mask, count, ne, n_real, w, mod, stream); calls
-    made through it directly are not counted in `launches`. The first
-    call is the span kernels.load."""
+    made through it directly are not counted in COUNTER. The first call
+    is the span kernels.load."""
     global _fns
     if _fns is None:
         with trace.span("kernels.load"):
@@ -84,7 +82,6 @@ def break_mask(ext: torch.Tensor, n_real: int, w: int, mod: int):
     by the kernel's shared-memory tile (227328 on sm_90a, far above any
     parse window) and a larger w raises ValueError; the plain version on
     a CPU tensor takes any w."""
-    global launches
     _check(ext, w, mod)
     if ext.device.type == "cpu":
         return break_mask_plain(ext, n_real, w, mod)
@@ -97,10 +94,6 @@ def break_mask(ext: torch.Tensor, n_real: int, w: int, mod: int):
                          f"tile (max {max_w})")
     mask = torch.empty(ext.numel(), dtype=torch.bool, device=ext.device)
     count = torch.empty((), dtype=torch.int32, device=ext.device)
-    rc = build.launch(fn, ext, ext.data_ptr(), mask.data_ptr(),
-                      count.data_ptr(), ext.numel(), int(n_real), int(w),
-                      int(mod))
-    if rc != 0:
-        raise RuntimeError(f"kr_break_mask launch failed: CUDA error {rc}")
-    launches += 1
+    build.launch(fn, ext, ext.data_ptr(), mask.data_ptr(), count.data_ptr(),
+                 ext.numel(), int(n_real), int(w), int(mod), counter=COUNTER)
     return mask, count

@@ -50,8 +50,6 @@ KERNELS = ("phrase_fingerprint", "phrase_verify", "phrase_tail_rank")
 # trace counters: one a kernel launch
 COUNTERS = {k: f"kernels.{k}.launches" for k in KERNELS}
 
-launches = dict.fromkeys(KERNELS, 0)  # kernel launches (CPU calls do not)
-
 _fns = None  # {kernel name: its C entry point}, bound once
 
 _P = ctypes.c_void_p
@@ -62,7 +60,7 @@ def launcher() -> dict:
     """{name: C entry point} of csrc/phrases.cu, built and bound at the
     first call; their arguments are those of the extern "C" functions
     there, the stream last. Calls made through them directly are not
-    counted in `launches`. The first call is the span kernels.load."""
+    counted in COUNTERS. The first call is the span kernels.load."""
     global _fns
     if _fns is None:
         with trace.span("kernels.load"):
@@ -99,11 +97,7 @@ def _on_card(ext: torch.Tensor, name: str) -> bool:
 
 
 def _launch(name: str, ext: torch.Tensor, *args) -> None:
-    rc = build.launch(launcher()[name], ext, *args)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches[name] += 1
-    trace.count(COUNTERS[name])
+    build.launch(launcher()[name], ext, *args, counter=COUNTERS[name])
 
 
 # --- fingerprint ---------------------------------------------------------------

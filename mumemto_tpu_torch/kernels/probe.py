@@ -28,7 +28,7 @@ from mumemto_tpu_torch.kernels import build
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-launches = 0  # kernel launches made by add_one
+COUNTER = "kernels.add_one.launches"  # trace counter: one a kernel launch
 
 CHILD = r"""
 import sys
@@ -68,18 +68,14 @@ def add_one_plain(x: torch.Tensor) -> torch.Tensor:
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
     """x + 1 by the CUDA kernel; x must be a CUDA tensor."""
-    global launches
     _check(x)
     if not x.is_cuda:
         raise ValueError(f"add_one launches a CUDA kernel and takes a CUDA "
                          f"tensor, got {x.device} (add_one_plain is the "
                          "plain version)")
     out = torch.empty_like(x)  # allocated on x's device, on its stream
-    rc = build.launch(_fn or _kernel(), x, x.data_ptr(), out.data_ptr(),
-                      x.numel())
-    if rc != 0:
-        raise RuntimeError(f"add_one launch failed: CUDA error {rc}")
-    launches += 1
+    build.launch(_fn or _kernel(), x, x.data_ptr(), out.data_ptr(),
+                 x.numel(), counter=COUNTER)
     return out
 
 

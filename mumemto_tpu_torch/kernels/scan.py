@@ -31,8 +31,6 @@ from mumemto_tpu_torch.kernels import build
 
 COUNTER = "kernels.scan.launches"  # trace counter: one a kernel launch
 
-launches = 0  # kernel launches made by running_max/min (CPU calls do not)
-
 _fns = None  # (running_scan, running_scan_status_words), bound once
 
 
@@ -40,8 +38,8 @@ def launcher():
     """(running_scan, running_scan_status_words): the C entry points of
     csrc/scan.cu, built and bound at the first call. running_scan's
     arguments are (in, out, status, n, elem_bytes, is_min, reverse,
-    stream); calls made through it directly are not counted in
-    `launches`. The first call is the span kernels.load."""
+    stream); calls made through it directly are not counted in COUNTER.
+    The first call is the span kernels.load."""
     global _fns
     if _fns is None:
         with trace.span("kernels.load"):
@@ -75,7 +73,6 @@ def running_plain(x: torch.Tensor, op: str, reverse: bool = False):
 
 
 def _running(x: torch.Tensor, op: str, reverse: bool) -> torch.Tensor:
-    global launches
     _check(x)
     if x.device.type == "cpu":
         return running_plain(x, op, reverse)
@@ -90,12 +87,8 @@ def _running(x: torch.Tensor, op: str, reverse: bool) -> torch.Tensor:
     size = x.element_size()
     status = torch.empty(status_words(n, size), dtype=torch.int64,
                          device=x.device)
-    rc = build.launch(fn, x, x.data_ptr(), out.data_ptr(), status.data_ptr(),
-                      n, size, int(op == "min"), int(reverse))
-    if rc != 0:
-        raise RuntimeError(f"running_scan launch failed: CUDA error {rc}")
-    launches += 1
-    trace.count(COUNTER)
+    build.launch(fn, x, x.data_ptr(), out.data_ptr(), status.data_ptr(), n,
+                 size, int(op == "min"), int(reverse), counter=COUNTER)
     return out
 
 

@@ -64,19 +64,6 @@ class ScanSizeError(ValueError):
     fallback where that reproduces the run, else a clean error."""
 
 
-def bucket(n: int, lo: int = 1024) -> int:
-    """0.75/1.0-of-a-power-of-two size bucket (the JAX package's shapes)."""
-    n = max(n, lo)
-    p = 1 << (n - 1).bit_length()
-    if p // 2 + p // 4 >= n:
-        return p // 2 + p // 4
-    return p
-
-
-def _noop_phase(name: str) -> None:
-    pass
-
-
 # ---------------------------------------------------------------------------
 # 1. parse
 # ---------------------------------------------------------------------------
@@ -394,7 +381,7 @@ def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
         ext_np = np.concatenate([
             np.full(1, DOLLAR_PFP, np.uint8), text_np,
             np.full(w, DOLLAR_PFP, np.uint8)])
-        ne = bucket(ext_np.size)
+        ne = ops_suffix.bucket(ext_np.size, lo=1024)
         ext_pad = np.zeros(ne, np.uint8)
         ext_pad[:ext_np.size] = ext_np
         ext = torch.from_numpy(ext_pad).to(device)
@@ -505,9 +492,9 @@ def _pad_phrase_arrays(pfp: PFPData):
     d_starts = _dict_starts(pfp.phrase_ln)
     # +4 trailing TERM pads: the packed SA seed reads up to 3 chars past
     # a suffix start
-    nd = bucket(pfp.d_len + 4)
+    nd = ops_suffix.bucket(pfp.d_len + 4, lo=1024)
     npz = pfp.num_phrases
-    npzb = bucket(npz + 1, lo=64) - 1
+    npzb = ops_suffix.bucket(npz + 1, lo=64) - 1
     total_real = pfp.d_len - 1
     phrase_st = np.zeros(npzb + 1, np.int32)
     phrase_ln = np.zeros(npzb + 1, np.int32)
@@ -538,7 +525,7 @@ def _host_prep(pfp: PFPData, doc_ends: np.ndarray):
     lvl_static = min((lvl_run + 1) // 2 * 2, lvl_run, lvl_cap)
 
     m = pfp.m
-    mp = bucket(m + 1, lo=64)
+    mp = ops_suffix.bucket(m + 1, lo=64)
     pprime = np.zeros(mp, np.int32)
     pprime[:m] = pfp.parse
     charlen = np.zeros(mp + 1, np.int64)
@@ -547,7 +534,7 @@ def _host_prep(pfp: PFPData, doc_ends: np.ndarray):
 
     cnt = (pfp.phrase_ln[pfp.parse] - w).astype(np.int64)
     n_rows = int(cnt.sum())
-    nr = bucket(n_rows)
+    nr = ops_suffix.bucket(n_rows, lo=1024)
     wide = n_rows >= 2**31
     cumcnt = np.zeros(mp + 1, np.int64 if wide else np.int32)
     cumcnt[1:m + 1] = np.cumsum(cnt)
@@ -726,7 +713,7 @@ def _expand_and_analyze(parse, d_starts, cumcnt, m: int, total_rows: int,
 
 
 def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
-                     probe_words: int = 2, phase=None,
+                     probe_words: int = 2,
                      dict_devices: list | None = None,
                      max_nr: int | None = None) -> dict:
     """The dict and parse side of a scan on pfp.ext's device, shared by
@@ -741,8 +728,7 @@ def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
     probe_words belongs to the replicated index alone: the sharded one
     takes the rank descent and has no probe. max_nr: refuse a row bucket
     of max_nr or more with ScanSizeError, before the dict index."""
-    phase = phase or _noop_phase
-    with trace.span("pfp.dict_index"):
+    with trace.stage("pfp.dict_index", "dict_index"):
         h = _host_prep(pfp, doc_ends)
         if max_nr is not None and h["nr"] >= max_nr:
             raise ScanSizeError(
@@ -764,11 +750,9 @@ def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
                 h["npz"], h["total_real"], h["nd"], h["ne"], h["w"],
                 h["lvl_cap"], h["lvl_static"], h["seed_thr"], h["lcp_thr"],
                 probe_words=probe_words)
-    phase("dict_index")
-    with trace.span("pfp.parse_side"):
+    with trace.stage("pfp.parse_side", "parse_side"):
         isaP, slt_table = _parse_side(h["parse"], h["cumC"], h["d_starts"],
                                       lcpD, isaD, h["mp"])
-    phase("parse_side")
     h.update({"isaP": isaP, "grp_of_pos": grp_of_pos, "d": d,
               "slt_table": slt_table, "grp_cross": grp_cross})
     return h
@@ -777,38 +761,19 @@ def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
 def pfp_scan(pfp: PFPData, doc_ends: np.ndarray, num_docs: int,
              min_match_len: int, num_distinct: int, max_total_freq: int,
              max_doc_freq: int, size_cap: int | None = None,
-             need_ctx: bool = False, probe_words: int = 2, phase=None):
+             need_ctx: bool = False, probe_words: int = 2):
     """Full PFP expansion + interval scan on pfp.ext's device; returns
-    (res, counts, nr). `phase(name)` is called after each stage."""
-    phase = phase or _noop_phase
+    (res, counts, nr)."""
     h = pfp_scan_prepare(pfp, doc_ends, probe_words=probe_words,
-                         phase=phase, max_nr=ROW_LIMIT)
-    with trace.span("pfp.expand_sort_analyze"):
+                         max_nr=ROW_LIMIT)
+    with trace.stage("pfp.expand_sort_analyze", "expand_sort_analyze"):
         res, counts = _expand_and_analyze(
             h["parse"], h["d_starts"], h["cumcnt"], h["m"],
             h["total_rows"], h["n_text"], h["isaP"], h["grp_of_pos"], h["d"],
             h["slt_table"], h["grp_cross"], h["doc_ends"], h["nr"], h["nd"],
             h["w"], num_docs, min_match_len, num_distinct, max_total_freq,
             max_doc_freq, size_cap, need_ctx)
-    phase("expand_sort_analyze")
     return res, counts, h["nr"]
-
-
-def scan_collection_pfp(text_np: np.ndarray, doc_ends: np.ndarray,
-                        num_docs: int, min_match_len: int, num_distinct: int,
-                        max_total_freq: int, max_doc_freq: int,
-                        device: torch.device, w: int = 10, mod: int = 100,
-                        size_cap: int | None = None, need_ctx: bool = False,
-                        phase=None):
-    """Parse + scan one collection on `device`; returns (res, counts, nr).
-    need_ctx adds the merge contexts (prev_ctx, next_ctx) to res."""
-    phase = phase or _noop_phase
-    with trace.span("pfp.build"):
-        pfp = build_pfp(text_np, device, w=w, mod=mod)
-    phase("build_pfp")
-    return pfp_scan(pfp, doc_ends, num_docs, min_match_len, num_distinct,
-                    max_total_freq, max_doc_freq, size_cap=size_cap,
-                    need_ctx=need_ctx, phase=phase)
 
 
 # ---------------------------------------------------------------------------
@@ -880,7 +845,7 @@ def pfp_from_parse_files(prefix: str, device: torch.device,
     phrase_ln = np.zeros(num_phrases + 1, np.int32)
     phrase_st[1:] = starts
     phrase_ln[1:] = lens
-    ext_pad = np.zeros(bucket(body.size + 1), np.uint8)
+    ext_pad = np.zeros(ops_suffix.bucket(body.size + 1, lo=1024), np.uint8)
     ext_pad[:body.size] = body
     step = (phrase_ln[parse] - w).astype(np.int64)
     return PFPData(w=w, n_text=int(step.sum()) - 1, m=m,
@@ -889,3 +854,14 @@ def pfp_from_parse_files(prefix: str, device: torch.device,
                    ext=torch.from_numpy(ext_pad).to(device), parse=parse,
                    phrase_st=phrase_st, phrase_ln=phrase_ln,
                    alpha=_alphabet(body))
+
+
+def collection_pfp(rb, device: torch.device, w: int = 10, mod: int = 100,
+                   parse_prefix: str | None = None) -> PFPData:
+    """The collection's PFPData on `device`: read from PREFIX.dict/.parse
+    (-p, the stage pfp.read_parse) or built from rb.text (pfp.build)."""
+    if parse_prefix:
+        with trace.stage("pfp.read_parse", "read_parse"):
+            return pfp_from_parse_files(parse_prefix, device, w=w)
+    with trace.stage("pfp.build", "build_pfp"):
+        return build_pfp(rb.text, device, w=w, mod=mod)

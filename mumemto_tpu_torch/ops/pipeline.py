@@ -23,13 +23,13 @@ def scan_collection(text: torch.Tensor, doc_ends: torch.Tensor, n: int,
                     num_docs: int, min_match_len: int, num_distinct: int,
                     max_total_freq: int, max_doc_freq: int,
                     size_cap: int | None = None, need_ctx: bool = True,
-                    alpha_thresholds=None, lcp_thresholds=None, phase=None):
+                    alpha_thresholds=None, lcp_thresholds=None):
     """Direct (-g) backend on text's device: uncapped prefix doubling of
     the zero-padded text (n chars), exact LCP, BWT and doc ids, then the
     interval analysis. Returns (res, counts) with counts = [emit, cand,
-    BWT runs]. phase(name) is called after the suffix_array, lcp and
-    analyze stages, where their spans (direct.suffix_array, direct.lcp,
-    direct.analyze) end.
+    BWT runs]. Its stages direct.suffix_array, direct.lcp and
+    direct.analyze call the phase hook (trace.stage) with suffix_array,
+    lcp and analyze.
 
     alpha_thresholds (<= 8 distinct bytes) seed 8-char ranks and take the
     PLCP LCP; otherwise the rank descent with the packed bottom
@@ -39,12 +39,10 @@ def scan_collection(text: torch.Tensor, doc_ends: torch.Tensor, n: int,
     pad position). The PLCP runs with probe_words=2, where the JAX backend
     uses 1: the values do not depend on it, and the 18-char probe leaves
     fewer rows to the descent."""
-    with trace.span("direct.suffix_array"):
+    with trace.stage("direct.suffix_array", "suffix_array"):
         sa, hist, num_lvl = ops_suffix._suffix_array_impl(
             text, n, packed_init=True, alpha_thresholds=alpha_thresholds)
-    if phase is not None:
-        phase("suffix_array")
-    with trace.span("direct.lcp"):
+    with trace.stage("direct.lcp", "lcp"):
         if alpha_thresholds is not None:
             # deep_cap n//4, as in JAX: the repetitive full text leaves far
             # more saturated irreducible rows than the dictionary does
@@ -58,9 +56,7 @@ def scan_collection(text: torch.Tensor, doc_ends: torch.Tensor, n: int,
         trace.count(trace.READBACKS)
         lcp = ops_suffix.canonicalize_pad_lcp(
             lcp, sa, int(doc_ends[num_docs - 1]) + 1, n)
-    if phase is not None:
-        phase("lcp")
-    with trace.span("direct.analyze"):
+    with trace.stage("direct.analyze", "analyze"):
         bwt = ops_suffix.bwt_of(text, sa)
         da = ops_suffix.doc_array(sa, doc_ends, num_docs)
         res = ops_intervals.analyze_intervals(
@@ -77,8 +73,6 @@ def scan_collection(text: torch.Tensor, doc_ends: torch.Tensor, n: int,
         nruns = change.sum(dtype=I32) + 1
         counts = torch.stack([res["emit"].sum(dtype=I32),
                               res["cand"].sum(dtype=I32), nruns])
-    if phase is not None:
-        phase("analyze")
     return res, counts
 
 
@@ -165,11 +159,3 @@ def compact_cand_thresh(res: dict, n: int, M: int, W: int):
     sa_first0 = res["sa"][torch.clamp(s + first0, 0, n - 1)]
     return has0, sa_first0, res["prev_ctx"][idx], res["next_ctx"][idx]
 
-
-def bucket(m: int, lo: int = 256) -> int:
-    """0.75/1.0-of-a-power-of-two bucket for compaction sizes."""
-    m = max(m, 1)
-    p = 1 << (m - 1).bit_length()
-    if p // 2 + p // 4 >= m:
-        p = p // 2 + p // 4
-    return max(lo, p)

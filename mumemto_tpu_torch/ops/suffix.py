@@ -25,6 +25,14 @@ I32 = torch.int32
 I64 = torch.int64
 
 
+def bucket(n: int, lo: int) -> int:
+    """The least 0.75 or 1.0 multiple of a power of two >= max(n, lo), lo a
+    power of two: the padded sizes of arrays (the JAX package's shapes)."""
+    n = max(n, lo)
+    p = 1 << (n - 1).bit_length()
+    return p // 2 + p // 4 if p // 2 + p // 4 >= n else p
+
+
 def route_set(target_idx: torch.Tensor, *values: torch.Tensor):
     """out_k[target_idx] = values_k, where target_idx is a permutation of
     0..n-1: one scatter per value."""

@@ -41,6 +41,7 @@ import threading
 import numpy as np
 import torch
 
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.ops import pfp as ops_pfp
 from mumemto_tpu_torch.parallel import mesh as pmesh
 from mumemto_tpu_torch.parallel.partition import _check_capacity
@@ -162,7 +163,8 @@ def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
     `phase(name)` is called on the caller's thread after each stage
     (build_pfp or read_parse, dict_index, parse_side, operands, sort,
     analyze: stages C and D of every shard, assemble); without one,
-    engine._phase_logger's hook is."""
+    engine._phase_logger's hook is. The call's root span is
+    parallel.find_matches_seq_sharded."""
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.parallel import widepfp
 
@@ -173,16 +175,12 @@ def find_matches_seq_sharded(rb, opts, devices: list, pfp_w: int = 10,
     if size_cap is None or size_cap > 4096:
         raise ValueError("seq-sharded scan requires a bounded interval "
                          "size cap (finite f/F or MUM mode)")
-    if phase is None:
-        phase = engine._phase_logger(devices)
-    if parse_prefix:
-        pfp = ops_pfp.pfp_from_parse_files(parse_prefix, devices[0], w=pfp_w)
-        phase("read_parse")
-    else:
-        pfp = ops_pfp.build_pfp(rb.text, devices[0], w=pfp_w, mod=pfp_mod)
-        phase("build_pfp")
-    return widepfp.find_matches_wide(rb, opts, devices, M=M, pfp=pfp,
-                                     phase=phase, shard_dict=shard_dict)
+    hook = phase if phase is not None else engine._phase_logger(devices)
+    with trace.call("parallel.find_matches_seq_sharded", hook=hook):
+        pfp = ops_pfp.collection_pfp(rb, devices[0], w=pfp_w, mod=pfp_mod,
+                                     parse_prefix=parse_prefix)
+        return widepfp.find_matches_wide(rb, opts, devices, M=M, pfp=pfp,
+                                         shard_dict=shard_dict)
 
 
 def _assemble_results(rb, opts, counts, win: dict, nshards: int, M: int):

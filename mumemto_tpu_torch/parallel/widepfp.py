@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import torch
 
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import scan
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import pfp as ops_pfp
@@ -309,8 +310,7 @@ TABLES = ("parse", "d_starts", "cumcnt", "isaP", "d", "grp_of_pos",
 
 def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
               num_distinct: int, max_total_freq: int, max_doc_freq: int,
-              size_cap: int, need_ctx: bool, M: int, mem_mode: bool,
-              phase=None):
+              size_cap: int, need_ctx: bool, M: int, mem_mode: bool):
     """The sharded scan (stages A-D) of a prepared collection
     (ops/pfp.pfp_scan_prepare) over the mesh `devices`, one shard per
     entry. Returns (counts, windows): counts = [emit, cand, BWT runs] over
@@ -320,10 +320,10 @@ def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
     stage A, the sort's rounds and the halo copies each run on every
     device at once; stages C and D run together for one shard, whose
     transients go before the device's next shard, so a device that holds
-    several shards holds one block's transients at a time. `phase(name)`
-    is called on the caller's thread after each stage (operands, sort,
-    analyze: C and D)."""
-    phase = phase or ops_pfp._noop_phase
+    several shards holds one block's transients at a time. The stages
+    wide.operands, wide.sort and wide.analyze (C and D, the halos before
+    them) call the phase hook (trace.stage) with operands, sort and
+    analyze, on the caller's thread."""
     nshards = len(devices)
     nr, nd, w = prep["nr"], prep["nd"], prep["w"]
     assert nshards & (nshards - 1) == 0, "seq axis must be a power of two"
@@ -351,11 +351,10 @@ def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
             i * B, t["parse"], t["d_starts"], t["cumcnt"], prep["m"],
             prep["total_rows"], prep["n_text"], t["isaP"], t["grp_tab"],
             t["doc_ends"], B, nd, w, num_docs)
-    blocks = pmesh.run_per_device(operands, range(nshards), devices)
-    phase("operands")
-    blocks = _bitonic_block_sort(blocks, devices)
-    phase("sort")
-    halos = _exchange_halos(blocks, H, devices)
+    with trace.stage("wide.operands", "operands"):
+        blocks = pmesh.run_per_device(operands, range(nshards), devices)
+    with trace.stage("wide.sort", "sort"):
+        blocks = _bitonic_block_sort(blocks, devices)
 
     def analyze(i):
         haloed = _haloed(blocks[i], halos[i])
@@ -369,8 +368,9 @@ def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
                                 num_docs, mem_mode, need_ctx)
         return window, torch.stack([res["emit"].sum(dtype=I32),
                                     res["cand"].sum(dtype=I32), nruns_local])
-    out = pmesh.run_per_device(analyze, range(nshards), devices)
-    phase("analyze")
+    with trace.stage("wide.analyze", "analyze"):
+        halos = _exchange_halos(blocks, H, devices)
+        out = pmesh.run_per_device(analyze, range(nshards), devices)
     windows = [wd for wd, _ in out]
     counts = pmesh.psum([c for _, c in out], devices[0])
     counts[2] += 1
@@ -378,33 +378,31 @@ def wide_step(prep: dict, devices: list, num_docs: int, min_match_len: int,
 
 
 def find_matches_wide(rb, opts, devices: list, pfp, M: int = 4096,
-                      phase=None, shard_dict: bool = False):
+                      shard_dict: bool = False):
     """engine.find_matches over the mesh `devices` (parallel/mesh.py), with
     output bytes equal to the single-device engine's. pfp: the collection's
     PFPData with ext on devices[0] (seqpfp.find_matches_seq_sharded, the
     entry point, builds or reloads it). shard_dict: build the dict index
     distributed over the same mesh (parallel/sharddict.py); its tables come
-    back whole on devices[0], and the block stages take them unchanged."""
+    back whole on devices[0], and the block stages take them unchanged.
+    The host-side merge is the stage wide.assemble (hook name assemble)."""
     from mumemto_tpu_torch import engine
 
-    phase = phase or ops_pfp._noop_phase
     size_cap = engine.interval_size_cap(opts, rb.num_docs)
     if size_cap is None or size_cap > 4096:
         raise ValueError("block scan requires a bounded interval size "
                          "cap <= 4096 (finite f/F; collections up to "
                          "4096 docs in strict-MUM terms)")
     prep = ops_pfp.pfp_scan_prepare(
-        pfp, rb.doc_ends, phase=phase,
-        dict_devices=devices if shard_dict else None)
+        pfp, rb.doc_ends, dict_devices=devices if shard_dict else None)
     nshards = len(devices)
     M = min(M, prep["nr"] // nshards)
     counts, windows = wide_step(
         prep, devices, rb.num_docs, opts.min_match_len, opts.num_distinct,
         opts.max_total_freq, opts.max_doc_freq, size_cap, opts.merge, M,
-        mem_mode=not opts.mum_mode, phase=phase)
-    results = _assemble_wide(rb, opts, counts, windows, nshards, M)
-    phase("assemble")
-    return results
+        mem_mode=not opts.mum_mode)
+    with trace.stage("wide.assemble", "assemble"):
+        return _assemble_wide(rb, opts, counts, windows, nshards, M)
 
 
 def _assemble_wide(rb, opts, counts, windows: list, nshards: int, M: int):

@@ -1,11 +1,13 @@
 """Spans and counters of the port's own work, off unless asked for.
 
 `span(name)` marks a stretch of code and `count(name, n)` adds to a counter
-of the call it runs in; `call(name)` opens the root span of one
-engine.find_matches call. Tracing is on between `enable()` and `disable()`,
-and, without them, for the length of each call opened while a
-torch.profiler records (the profiler then carries the spans in its own
-trace). Off, `span` and `call` hand back one shared no-op context and
+of the call it runs in (kernels/build.launch counts each kernel launch);
+`call(name, hook)` opens the root span of one call and carries its phase
+hook, which each `stage(name, hook_name)` span of the call calls where it
+ends. Tracing is on between `enable()` and `disable()`, and, without them,
+for the length of each call opened while a torch.profiler records (the
+profiler then carries the spans in its own trace). Off, `span` hands back
+one shared no-op context, as `call` and `stage` do without a hook, and
 `count` returns after one flag check: no synchronization, no device
 memory, no allocation.
 
@@ -17,7 +19,7 @@ clock of a chrome trace's ts + baseTimeNanoseconds / 1000), its parent
 under: on the same thread, or on a worker thread started by the root's
 thread, the innermost open root) and its thread. A counter adds to the
 call of the innermost open span. `drain()` hands over what was kept and
-forgets it.
+forgets it; `totals()` reads the counters without forgetting them.
 """
 
 from __future__ import annotations
@@ -41,11 +43,13 @@ _calls: list = []       # the roots open on any thread, innermost last
 _counters: dict = {}    # (call id or None, name) -> count
 
 
-def enable() -> None:
-    """Record every span and counter until disable()."""
+def enable() -> bool:
+    """Record every span and counter until disable(); returns whether
+    tracing was enabled already."""
     global _enabled, _on
     with _lock:
-        _enabled = _on = True
+        was, _enabled, _on = _enabled, True, True
+    return was
 
 
 def disable() -> None:
@@ -70,11 +74,14 @@ def drain() -> dict:
     return {"spans": [s.record() for s in spans], "counters": out}
 
 
-def _stack() -> list:
-    stack = getattr(_local, "stack", None)
-    if stack is None:
-        stack = _local.stack = []
-    return stack
+def totals() -> dict:
+    """{counter name: its count over every call} of what was kept since the
+    last drain, which stays kept."""
+    out = {}
+    with _lock:
+        for (_call, name), n in _counters.items():
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def _current_call(stack: list):
@@ -94,7 +101,7 @@ class _Span:
 
     def __enter__(self):
         import torch
-        stack = _stack()
+        stack = _local.__dict__.setdefault("stack", [])  # this thread's
         self.parent = stack[-1].id if stack else None
         self.call = _current_call(stack)
         self.thread = threading.get_ident()
@@ -108,7 +115,7 @@ class _Span:
 
     def __exit__(self, *exc):
         self.end_ns = time.time_ns()
-        _stack().pop()
+        _local.stack.pop()
         self._rf.__exit__(*exc)
         self._rf = None
         return False
@@ -157,18 +164,53 @@ def span(name: str):
     return _Span(name)
 
 
-def call(name: str):
-    """The root span of one call: recorded when tracing is enabled or a
-    torch.profiler records (then tracing is on until it closes), else the
-    shared no-op context."""
-    if _enabled:
-        return _Call(name, auto=False)
+def call(name: str, hook=None):
+    """The root span of one call, which carries the call's phase hook
+    (hook(name) is called where each of its stages ends): recorded when
+    tracing is enabled or a torch.profiler records (then tracing is on
+    until it closes); else the hook alone, or, without one, the shared
+    no-op context."""
     import torch
     # the profiler's own switch (torch.profiler.profile and the autograd
     # profiler both set it); there is no public query
-    if torch._C._autograd._profiler_enabled():
-        return _Call(name, auto=True)
-    return _NOOP
+    if _enabled or torch._C._autograd._profiler_enabled():
+        root = _Call(name, auto=not _enabled)
+    elif hook is None:
+        return _NOOP
+    else:
+        root = _NOOP
+    return _hooked(root, hook)
+
+
+@contextlib.contextmanager
+def _hooked(root, hook):
+    hooks = _local.__dict__.setdefault("hooks", [])  # this thread's calls'
+    hooks.append(hook)
+    try:
+        with root as opened:
+            yield opened
+    finally:
+        hooks.pop()
+
+
+def stage(name: str, hook_name: str):
+    """A stage of the call open on this thread: the span `name` and then,
+    when its body ends without raising, the call's hook with hook_name,
+    on this thread. With tracing off and no hook, the shared no-op
+    context."""
+    hooks = getattr(_local, "hooks", None)
+    hook = hooks[-1] if hooks else None
+    if hook is None and not _on:
+        return _NOOP
+    return _stage(span(name), hook, hook_name)
+
+
+@contextlib.contextmanager
+def _stage(marked, hook, hook_name: str):
+    with marked:
+        yield
+    if hook is not None:
+        hook(hook_name)
 
 
 def count(name: str, n: int = 1) -> None:

@@ -237,23 +237,59 @@ def test_verify_checks_the_result(capsys):
     assert rec["verified"] == rec["matches"] > 0
 
 
+@pytest.mark.parametrize("outer", ["counted", "enabled"])
+def test_counted_reads_the_launch_counters(outer):
+    """bench.counted counts a call's launches from the trace counters:
+    inside another counted call it counts its own and leaves the outer
+    call's whole; inside an enabled window it drains nothing; tracing is
+    left as it was found."""
+    from mumemto_tpu_torch import trace
+    from mumemto_tpu_torch.kernels import kr_mask, scan
+
+    def launch(counter, n):
+        for _ in range(n):
+            trace.count(counter)
+
+    def body():
+        launch(kr_mask.COUNTER, 2)
+        _, _s, inner = t_bench.counted(torch,
+                                       lambda: launch(scan.COUNTER, 3))
+        assert inner["running_scan"] == 3 and inner["kr_break_mask"] == 0
+        launch(kr_mask.COUNTER, 1)
+    trace.disable()
+    trace.drain()
+    try:
+        if outer == "counted":
+            _, _s, got = t_bench.counted(torch, body)
+            assert (got["kr_break_mask"], got["running_scan"]) == (3, 3)
+            assert trace.drain() == {"spans": [], "counters": {}}
+            assert trace.span("a") is trace.span("b")  # off again
+        else:
+            trace.enable()
+            with trace.call("engine.find_matches") as root:
+                body()
+            trace.disable()
+            assert trace.drain()["counters"] == {
+                root.id: {kr_mask.COUNTER: 3, scan.COUNTER: 3}}
+    finally:
+        trace.disable()
+        trace.drain()
+
+
 def test_chip_smoke_names_are_the_modules():
-    """chip_smoke.py keeps one copy: its private names are the harness's."""
+    """chip_smoke.py keeps one copy: it calls the harness's helpers as
+    bench.<name> and defines none of them, nor an alias of one, itself."""
     chip_smoke = _root("chip_smoke")
-    pairs = {"_synth_collection": "synth_collection",
-             "_synth_collection_real": "synth_collection_real",
-             "_rb_of": "rb_of", "_write_fastas": "write_fastas",
-             "_build_cpu_baseline": "build_cpu_baseline",
-             "_Baseline": "Baseline", "_cpu_baseline": "cpu_baseline",
-             "_run_cpu_baseline": "run_cpu_baseline", "_triple": "triple",
-             "_occ_stats": "occ_stats", "StageTimer": "StageTimer",
-             "SumTimer": "SumTimer", "_Split": "Split",
-             "_sync_all": "sync_all", "_counted": "counted", "_smi": "smi",
-             "_busy_overlap": "busy_overlap", "_trace_cards": "trace_cards",
-             "IUPAC_CODES": "IUPAC_CODES"}
-    for private, public in pairs.items():
-        assert getattr(chip_smoke, private) is getattr(t_bench, public), \
-            private
+    names = ("synth_collection", "synth_collection_real", "rb_of",
+             "write_fastas", "build_cpu_baseline", "Baseline", "cpu_baseline",
+             "run_cpu_baseline", "triple", "occ_stats", "StageTimer",
+             "SumTimer", "Split", "sync_all", "counted", "smi",
+             "busy_overlap", "trace_cards", "IUPAC_CODES")
+    assert chip_smoke.bench is t_bench
+    for name in names:
+        assert hasattr(t_bench, name), name
+        for own in (name, "_" + name):
+            assert not hasattr(chip_smoke, own), own
     assert chip_smoke.EXPECT_8MBP == 6759
     assert chip_smoke.W_BASELINE == {"matches": 61110, "sum_len": 4029012,
                                      "occ_hash": 15288323120970386319}

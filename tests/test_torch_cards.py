@@ -21,9 +21,11 @@ import torch
 
 from mumemto_tpu import options
 from mumemto_tpu.parallel import mumemtom as jax_mumemtom
+from mumemto_tpu_torch import bench as t_bench
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch import refbuilder
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import kr_mask
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.parallel import mesh as t_mesh
@@ -110,17 +112,17 @@ def _strand_docs(rng):
 
 
 def test_occ_hash_equals_baseline_cpu(chip_smoke, rng, tmp_path):
-    """chip_smoke._occ_stats of the port's .mums (count, sum of lengths
+    """t_bench.occ_stats of the port's .mums (count, sum of lengths
     and the order-free occurrence hash) equals native/baseline_cpu's on
     the same text, revcomp on, with MUMs on both strands; a changed
     strand or offset changes the hash."""
-    rb = chip_smoke._rb_of(_strand_docs(rng))
+    rb = t_bench.rb_of(_strand_docs(rng))
     opts = options.normalize(rb.num_docs, quiet=True)
     res = t_engine.find_matches(rb, opts, device="cpu")
     prefix = str(tmp_path / "strands")
     t_engine.write_outputs(res, rb, prefix)
-    got = chip_smoke._occ_stats(prefix + ".mums", rb.num_docs)
-    base = chip_smoke._cpu_baseline(rb.text, rb.seq_lengths, opts)
+    got = t_bench.occ_stats(prefix + ".mums", rb.num_docs)
+    base = t_bench.cpu_baseline(rb.text, rb.seq_lengths, opts)
     assert got == {k: base[k] for k in ("matches", "sum_len", "occ_hash")}
     lines = open(prefix + ".mums").read().splitlines()
     strands = {s for ln in lines for s in ln.split("\t")[2].split(",")}
@@ -129,7 +131,7 @@ def test_occ_hash_equals_baseline_cpu(chip_smoke, rng, tmp_path):
     first = lines[0].split("\t")
     first[2] = first[2].replace("+", "-", 1)
     flipped.write_text("\n".join(["\t".join(first)] + lines[1:]) + "\n")
-    moved = chip_smoke._occ_stats(str(flipped), rb.num_docs)
+    moved = t_bench.occ_stats(str(flipped), rb.num_docs)
     assert moved["matches"] == got["matches"]
     assert moved["occ_hash"] != got["occ_hash"]
 
@@ -167,7 +169,7 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
     table as large as C40's union's raises ScanSizeError, so m2's union is
     refused and its four partitions are not."""
     doc_mbp = 0.004
-    c40 = chip_smoke._rb_of(chip_smoke._synth_collection(40 * doc_mbp, 40))
+    c40 = t_bench.rb_of(t_bench.synth_collection(40 * doc_mbp, 40))
     limit = _dict_flat(c40)
     real_rmq = t_pfp._rmq_query
 
@@ -182,7 +184,7 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
         return torch.device("cpu")
 
     def counted_plain(ext, n_real, w, mod):
-        kr_mask.launches += 1
+        trace.count(kr_mask.COUNTER)
         return kr_mask.break_mask_plain(ext, n_real, w, mod)
 
     class NoCard(_NoCard):
@@ -195,7 +197,6 @@ def test_phase_cards_rehearsal(chip_smoke, monkeypatch):
     monkeypatch.setattr(t_device, "resolve", on_cpu)
     monkeypatch.setattr(t_mesh, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
-    monkeypatch.setattr(kr_mask, "launches", 0)
     _count_scans(monkeypatch)
     monkeypatch.setattr(t_pfp, "_rmq_query", guard_at_scale)
     # the dcn workers inherit it: two threads each

@@ -23,6 +23,7 @@ from mumemto_tpu.oracle import naive
 from mumemto_tpu_torch import cli as t_cli
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
+from mumemto_tpu_torch.ops import suffix as t_suffix
 from conftest import build, mutated_collection, rand_seq
 from test_torch_suffix import with_n
 
@@ -484,10 +485,9 @@ def test_compute_arrays_matches_jax(rng, label, kw):
     _same_results(
         t_engine.find_matches_from_arrays(*got, rb, opts, device="cpu"),
         jax_engine.find_matches_from_arrays(*want, rb, opts), opts)
-    assert t_engine.pad_size(rb.text.size) == jax_engine.pad_size(
-        rb.text.size)
-    for n in (0, 4092, 4093, 6140, 6141, 10**6):
-        assert t_engine.pad_size(n) == jax_engine.pad_size(n)
+    # the direct backend's text length: at least 4 pad bytes, bucketed
+    for n in (rb.text.size, 0, 4092, 4093, 6140, 6141, 10**6):
+        assert t_suffix.bucket(n + 4, lo=4096) == jax_engine.pad_size(n)
 
 
 def _cli_both(argv_j, argv_t):
@@ -601,16 +601,15 @@ def test_cuda_main_path_launches_the_kernels(rng, label, kw, backend):
     """On the card the PFP route launches the KR kernel and the running
     max / min kernel, -g the scan kernel alone, in MUM mode and with -f 3;
     each gives the CPU path's bytes."""
-    from mumemto_tpu_torch.kernels import kr_mask, scan
+    from mumemto_tpu_torch import bench
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rb = _route_rb(rng)
     opts = options.normalize(rb.num_docs, quiet=True, **kw)
-    kr0, scan0 = kr_mask.launches, scan.launches
-    got = t_engine.find_matches(rb, opts, device="cuda", backend=backend)
-    torch.cuda.synchronize()
-    assert (kr_mask.launches - kr0 > 0) == (backend == "pfp")
-    assert scan.launches - scan0 > 0
+    got, _s, launches = bench.counted(torch, lambda: t_engine.find_matches(
+        rb, opts, device="cuda", backend=backend))
+    assert (launches["kr_break_mask"] > 0) == (backend == "pfp")
+    assert launches["running_scan"] > 0
     want = t_engine.find_matches(rb, opts, device="cpu", backend=backend)
     assert got.output_bytes() == want.output_bytes()
     assert got.num_matches > 0

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from mumemto_tpu.ops import pallas_kernels as pk
 from mumemto_tpu.ops import pfp as jax_pfp
+from mumemto_tpu_torch import bench
 from mumemto_tpu_torch.kernels import kr_mask
 
 # several test workers share the machine's cores
@@ -130,10 +131,11 @@ def test_plain_takes_a_misaligned_view(rng):
 
 def test_cpu_tensor_takes_plain_and_counts_no_launch(rng):
     ext = _ext(rng, 8192, 6000, 10, alphabet=b"ACGT")
-    before = kr_mask.launches
-    mask, count = kr_mask.break_mask(torch.from_numpy(ext), 6000, 10, 100)
+    (mask, count), _s, launches = bench.counted(
+        torch, lambda: kr_mask.break_mask(torch.from_numpy(ext), 6000, 10,
+                                          100))
     m_t, c_t = _plain(ext, 6000, 10)
-    assert kr_mask.launches == before
+    assert launches["kr_break_mask"] == 0
     assert int(count) == c_t and (mask.numpy() == m_t).all()
 
 
@@ -156,10 +158,9 @@ def test_cuda_kernel_matches_plain(rng):
     for ne, n_text, w in [(1 << 20, (1 << 20) - 40, 10), (300001, 299000, 4),
                           (77777, 5, 16)]:
         ext = torch.from_numpy(_ext(rng, ne, n_text, w)).cuda()
-        before = kr_mask.launches
-        m_k, c_k = kr_mask.break_mask(ext, n_text, w, 100)
-        torch.cuda.synchronize()
-        assert kr_mask.launches == before + 1
+        (m_k, c_k), _s, launches = bench.counted(
+            torch, lambda: kr_mask.break_mask(ext, n_text, w, 100))
+        assert launches["kr_break_mask"] == 1
         m_p, c_p = kr_mask.break_mask_plain(ext, n_text, w, 100)
         assert int(c_k) == int(c_p)
         assert bool((m_k == m_p).all())

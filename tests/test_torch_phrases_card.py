@@ -73,10 +73,9 @@ def repeat_family(seed: int, g: int, prefix: int = 200, tail: int = 40):
 
 
 def _launched(fn):
-    before = dict(phrases.launches)
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {k: phrases.launches[k] - before[k] for k in before}
+    """(fn(), each phrase kernel's launches in it)."""
+    out, _s, launches = bench.counted(torch, fn)
+    return out, {k: launches[k] for k in phrases.KERNELS}
 
 
 @pytest.mark.gpu

@@ -16,8 +16,9 @@ from mumemto_tpu import engine as jax_engine
 from mumemto_tpu import options
 from mumemto_tpu.ops import pfp as jax_pfp
 from mumemto_tpu.ops import pipeline as jax_pipeline
-from mumemto_tpu_torch import convert
+from mumemto_tpu_torch import convert, trace
 from mumemto_tpu_torch.ops import pipeline as t_pipeline
+from mumemto_tpu_torch.ops import suffix as t_suffix
 from conftest import build, mutated_collection, rand_seq
 
 # several test workers share the machine's cores
@@ -63,19 +64,21 @@ def test_compactions_match_jax(collection, k, f, F):
     for key in ("cand", "emit", "s", "e", "L", "prev_same", "sa", "da"):
         assert (res_t[key].numpy() == np.asarray(res_j[key])).all(), key
     nd = collection.num_docs
-    M = t_pipeline.bucket(n_emit)
+    M = t_suffix.bucket(n_emit, lo=256)
     assert M == jax_pipeline.bucket(n_emit)
     fields = t_pipeline.compact_fields(res_t, n, M)
     _eq(fields, jax_pipeline.compact_fields(res_j, n, M))
     assert int(fields[4].sum()) == n_emit
     s0, e0 = fields[1].numpy(), fields[2].numpy()
     maxw = int((e0[:n_emit] - s0[:n_emit]).max()) if n_emit else 1
-    W = t_pipeline.bucket(maxw, lo=8)
+    W = t_suffix.bucket(maxw, lo=8)
+    assert W == jax_pipeline.bucket(maxw, lo=8)
     _eq(t_pipeline.compact_windows_mem(res_t, n, M, W, nd),
         jax_pipeline.compact_windows_mem(res_j, n, M, W, nd))
     _eq(t_pipeline.compact_windows_mum(res_t, n, M, nd, nd),
         jax_pipeline.compact_windows_mum(res_j, n, M, nd, nd))
-    Mc = t_pipeline.bucket(n_cand)
+    Mc = t_suffix.bucket(n_cand, lo=256)
+    assert Mc == jax_pipeline.bucket(n_cand)
     _eq(t_pipeline.compact_cand_thresh(res_t, n, Mc, nd),
         jax_pipeline.compact_cand_thresh(res_j, n, Mc, nd))
     assert n_cand >= n_emit
@@ -146,12 +149,13 @@ def test_scan_collection_matches_jax(rng, variant, k, f, F):
         opts.max_doc_freq, size_cap=size_cap, need_ctx=True,
         alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr)
     stages = []
-    res_t, counts_t = t_pipeline.scan_collection(
-        torch.from_numpy(text), torch.from_numpy(rb.doc_ends), n,
-        rb.num_docs, opts.min_match_len, opts.num_distinct,
-        opts.max_total_freq, opts.max_doc_freq, size_cap=size_cap,
-        need_ctx=True, alpha_thresholds=seed_thr, lcp_thresholds=lcp_thr,
-        phase=stages.append)
+    with trace.call("engine.find_matches", hook=stages.append):
+        res_t, counts_t = t_pipeline.scan_collection(
+            torch.from_numpy(text), torch.from_numpy(rb.doc_ends), n,
+            rb.num_docs, opts.min_match_len, opts.num_distinct,
+            opts.max_total_freq, opts.max_doc_freq, size_cap=size_cap,
+            need_ctx=True, alpha_thresholds=seed_thr,
+            lcp_thresholds=lcp_thr)
     assert stages == ["suffix_array", "lcp", "analyze"]
     assert (counts_t.numpy() == np.asarray(counts_j)).all()
     assert int(counts_t[0]) > 0

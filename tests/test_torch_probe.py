@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from mumemto_tpu_torch import bench, trace
 from mumemto_tpu_torch.kernels import build, probe
 
 # several test workers share the machine's cores
@@ -22,6 +23,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _tile():
     return np.arange(8 * 128, dtype=np.int32).reshape(8, 128)
+
+
+def _add_one(x):
+    """(add_one(x), its launches, counted in the trace counter)."""
+    got, _s, launches = bench.counted(torch, lambda: probe.add_one(x))
+    return got, launches["add_one"]
 
 
 def test_plain_matches_numpy():
@@ -38,10 +45,11 @@ def test_plain_wraps_like_int32():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    before = probe.launches
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        probe.add_one(torch.from_numpy(_tile()))
-    assert probe.launches == before
+    def refused():
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            probe.add_one(torch.from_numpy(_tile()))
+    _, _s, launches = bench.counted(torch, refused)
+    assert launches["add_one"] == 0
 
 
 @pytest.mark.parametrize("bad", [
@@ -121,6 +129,43 @@ def test_build_compiles_the_stale_sources_together(tmp_path, monkeypatch):
         == ["a.cu", "b.cu", "bad.cu", "bad.cu"]
 
 
+@pytest.mark.parametrize("rc", [0, 700])
+@pytest.mark.parametrize("on", [False, True])
+def test_launch_counts_or_raises(monkeypatch, rc, on):
+    """build.launch hands fn its arguments and the current stream, then
+    counts one launch in its trace counter, or, on a nonzero CUDA error
+    code, raises and counts none (a stand-in fn and stream on the CPU;
+    with tracing off nothing is kept)."""
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: -1,
+                        raising=False)
+    monkeypatch.setattr(build, "current_stream", lambda dev: 1234)
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return rc
+    trace.disable()
+    trace.drain()
+    if on:
+        trace.enable()
+    try:
+        with trace.call("engine.find_matches"):
+            if rc:
+                with pytest.raises(RuntimeError, match="kernels.fake launch "
+                                   "failed: CUDA error 700"):
+                    build.launch(fn, torch.zeros(1), 5, 6,
+                                 counter="kernels.fake.launches")
+            else:
+                build.launch(fn, torch.zeros(1), 5, 6,
+                             counter="kernels.fake.launches")
+    finally:
+        trace.disable()
+    kept = trace.drain()
+    assert calls == [(5, 6, 1234)]
+    assert list(kept["counters"].values()) == (
+        [{"kernels.fake.launches": 1}] if on and not rc else [])
+
+
 def _fake_card(monkeypatch, outcome):
     """Pretend a card exists and replace the child process by `outcome`
     (a CompletedProcess, or an exception to raise)."""
@@ -157,10 +202,8 @@ def test_cuda_kernel_matches_plain():
               torch.tensor([2**31 - 1, -1, 0], dtype=torch.int32),
               torch.arange(-500000, 500001, dtype=torch.int32)):
         xc = x.cuda()
-        before = probe.launches
-        got = probe.add_one(xc)
-        torch.cuda.synchronize()
-        assert probe.launches == before + 1
+        got, launched = _add_one(xc)
+        assert launched == 1
         assert torch.equal(got, probe.add_one_plain(xc))
     run = subprocess.run(
         [sys.executable, "-m", "mumemto_tpu_torch.kernels.probe", "600"],
@@ -203,8 +246,6 @@ def test_cuda_kernel_misaligned_and_odd(start, stop):
         -2**31, 2**31, 1000003, dtype=np.int64).astype(np.int32)).cuda()
     x = base[start:stop]
     assert x.is_contiguous()
-    before = probe.launches
-    got = probe.add_one(x)
-    torch.cuda.synchronize()
-    assert probe.launches == before + 1
+    got, launched = _add_one(x)
+    assert launched == 1
     assert torch.equal(got, probe.add_one_plain(x))

@@ -21,8 +21,10 @@ import pytest
 import torch
 
 from mumemto_tpu import engine as jax_engine
+from mumemto_tpu_torch import bench as t_bench
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch import options
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import kr_mask
 from mumemto_tpu_torch.oracle import naive
 from mumemto_tpu_torch.parallel import mesh
@@ -52,9 +54,9 @@ def _runs_of_n(doc):
 
 @pytest.mark.parametrize("mbp,seed", [(8, 0), (1, 1), (0.16, 0)])
 def test_real_collection_gaps(chip_smoke, mbp, seed):
-    docs = chip_smoke._synth_collection_real(mbp, 8, seed=seed)
-    again = chip_smoke._synth_collection_real(mbp, 8, seed=seed)
-    plain = chip_smoke._synth_collection(mbp, 8, seed=seed)
+    docs = t_bench.synth_collection_real(mbp, 8, seed=seed)
+    again = t_bench.synth_collection_real(mbp, 8, seed=seed)
+    plain = t_bench.synth_collection(mbp, 8, seed=seed)
     assert all(np.array_equal(a, b) for a, b in zip(docs, again))
     assert [d.size for d in docs] == [d.size for d in plain]
     n = docs[0].size
@@ -79,15 +81,15 @@ def test_real_collection_gaps(chip_smoke, mbp, seed):
     assert 0.005 < share < 0.06
     values = set(np.unique(np.concatenate(docs)).tolist())
     assert values == set(b"ACGTN")
-    other = chip_smoke._synth_collection_real(mbp, 8, seed=seed + 1)
+    other = t_bench.synth_collection_real(mbp, 8, seed=seed + 1)
     assert not all(np.array_equal(a, b) for a, b in zip(docs, other))
 
 
 @pytest.mark.parametrize("mbp,seed", [(8, 0), (1, 1), (0.16, 0)])
 def test_real_collection_iupac(chip_smoke, mbp, seed):
-    docs = chip_smoke._synth_collection_real(mbp, 8, seed=seed)
-    coded = chip_smoke._synth_collection_real(mbp, 8, seed=seed, iupac=True)
-    codes = np.frombuffer(chip_smoke.IUPAC_CODES, np.uint8)
+    docs = t_bench.synth_collection_real(mbp, 8, seed=seed)
+    coded = t_bench.synth_collection_real(mbp, 8, seed=seed, iupac=True)
+    codes = np.frombuffer(t_bench.IUPAC_CODES, np.uint8)
     n_codes = 0
     for d, c in zip(docs, coded):
         diff = d != c
@@ -98,10 +100,10 @@ def test_real_collection_iupac(chip_smoke, mbp, seed):
         n_codes += int(diff.sum())
     assert n_codes == 10 + 8 * max(1, round(docs[0].size * 1e-5))
     assert set(np.unique(np.concatenate(coded)).tolist()) == \
-        set(b"ACGTN" + chip_smoke.IUPAC_CODES)
+        set(b"ACGTN" + t_bench.IUPAC_CODES)
     # with the '$' and the parse's 0, 1, 2: 9 and 19 distinct bytes
-    for rb, want in ((chip_smoke._rb_of(docs), 9),
-                     (chip_smoke._rb_of(coded), 19)):
+    for rb, want in ((t_bench.rb_of(docs), 9),
+                     (t_bench.rb_of(coded), 19)):
         assert len(set(np.unique(rb.text).tolist()) | {0, 1, 2}) == want
         assert rb.seq_lengths == [2 * (d.size + 1) for d in docs]
 
@@ -113,11 +115,11 @@ def test_baseline_cpu_agrees_with_oracle_on_gapped_input(chip_smoke, iupac,
     """The program phase_real's counts are held against, against the
     oracle, the port's CPU path and the JAX package, on 3 documents of 2
     kbp with a gap each."""
-    docs = chip_smoke._synth_collection_real(0.006, 3, seed=5, iupac=iupac)
-    rb = chip_smoke._rb_of(docs)
+    docs = t_bench.synth_collection_real(0.006, 3, seed=5, iupac=iupac)
+    rb = t_bench.rb_of(docs)
     opts = options.normalize(3, quiet=True, **kw)
     want = naive.oracle_output(rb, opts)
-    _mbp_s, count = chip_smoke._run_cpu_baseline(rb.text, rb.seq_lengths,
+    _mbp_s, count = t_bench.run_cpu_baseline(rb.text, rb.seq_lengths,
                                                  opts, 0.006)
     assert count == want.count(b"\n") > 0
     assert t_engine.find_matches(rb, opts, device="cpu").output_bytes() == want
@@ -158,12 +160,11 @@ def test_phase_real_rehearsal(chip_smoke, monkeypatch):
         return torch.device("cpu")
 
     def counted_plain(ext, n_real, w, mod):
-        kr_mask.launches += 1
+        trace.count(kr_mask.COUNTER)
         return kr_mask.break_mask_plain(ext, n_real, w, mod)
     monkeypatch.setattr(t_engine, "resolve", on_cpu)
     monkeypatch.setattr(mesh, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
-    monkeypatch.setattr(kr_mask, "launches", 0)
     _count_scans(monkeypatch)
     fake = _TorchOnCpu()
     opts = options.normalize(8, quiet=True)

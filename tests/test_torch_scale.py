@@ -1,5 +1,5 @@
 """The main path at the shapes of BASELINE.md's configurations 2-4, small:
-10 and 20 genome-like documents (chip_smoke._synth_collection: mutated
+10 and 20 genome-like documents (t_bench.synth_collection: mutated
 copies of one random base, 0.1% SNPs), partial multi-MUMs (-k -1), -f 3,
 strict MUMs on 20 documents, MumemtoM with two anchor partitions, and the
 range-min query past its int32 flat index, where the JAX package refuses;
@@ -28,6 +28,7 @@ from mumemto_tpu import options
 from mumemto_tpu.ops import pfp as jax_pfp
 from mumemto_tpu.ops import suffix as jax_suffix
 from mumemto_tpu.parallel import mumemtom as jax_mumemtom
+from mumemto_tpu_torch import bench as t_bench
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch import trace
@@ -59,11 +60,11 @@ def chip_smoke():
 
 @functools.lru_cache(maxsize=None)
 def _docs(n_docs):
-    return _chip_smoke()._synth_collection(n_docs * DOC_MBP, n_docs, seed=0)
+    return t_bench.synth_collection(n_docs * DOC_MBP, n_docs, seed=0)
 
 
 def _rb(n_docs):
-    return _chip_smoke()._rb_of(_docs(n_docs))
+    return t_bench.rb_of(_docs(n_docs))
 
 
 @pytest.mark.parametrize("n_docs,kw", [
@@ -97,7 +98,7 @@ def test_mumemtom_anchor_partitions(chip_smoke, tmp_path):
     equal to the union's (strict MUMs on all 20) apart from MUMs that
     touch a document's first or last base."""
     docs = _docs(20)
-    fastas = chip_smoke._write_fastas(docs, str(tmp_path))
+    fastas = t_bench.write_fastas(docs, str(tmp_path))
     parts = mumemtom.auto_partition(fastas, 2, anchor=True)
     assert [len(p) for p in parts] == [11, 10]
     assert parts == jax_mumemtom.auto_partition(fastas, 2, anchor=True)
@@ -193,9 +194,8 @@ def test_range_min_by_level_through_a_whole_scan(monkeypatch, mix, seed):
     dictionary's and the parse's, is read level by level: the output bytes
     equal the flat path's, and the match set equals mumbench/reference.py's
     (the plain reference the benchmark's correct rests on)."""
-    docs = _chip_smoke()._synth_collection(0.03, 10, seed=seed,
-                                           snp_rate=0.01)
-    rb = _chip_smoke()._rb_of(docs)
+    docs = t_bench.synth_collection(0.03, 10, seed=seed, snp_rate=0.01)
+    rb = t_bench.rb_of(docs)
     opts = options.normalize(10, quiet=True, num_distinct_docs=mix["k"],
                              rare_freq=mix["f"], max_mem_freq=mix["F"])
 
@@ -224,7 +224,7 @@ def test_rmq_levels_at_the_card_sizes(nd):
     levels = t_suffix._num_levels(nd) + 1
     assert levels == jax_suffix._num_levels(nd) + 1
     assert (nd * levels < 2**31) == (nd <= 1 << 26)
-    assert t_pfp.bucket(nd) == nd == jax_pfp.bucket(nd)
+    assert t_suffix.bucket(nd, lo=1024) == nd == jax_pfp.bucket(nd)
 
 
 class _NoCard:
@@ -272,20 +272,19 @@ class _TorchOnCpu:
 
 def _count_scans(monkeypatch):
     """The running max / min and the phrase kernels as the rehearsals see
-    them: their plain versions, each call counted in scan.launches or
-    phrases.launches as a launch on the card is."""
+    them: their plain versions, each call counted in the kernel's trace
+    counter as a launch on the card is."""
     def counted(op):
         def run(x, reverse=False):
-            scan.launches += 1
+            trace.count(scan.COUNTER)
             return scan.running_plain(x, op, reverse)
         return run
     monkeypatch.setattr(scan, "running_max", counted("max"))
     monkeypatch.setattr(scan, "running_min", counted("min"))
-    monkeypatch.setattr(scan, "launches", 0)
 
     def counted_phrases(name, plain):
         def run(*a):
-            phrases.launches[name] += 1
+            trace.count(phrases.COUNTERS[name])
             return plain(*a)
         return run
     for name, plain in (("fingerprint", phrases.fingerprint_plain),
@@ -293,8 +292,6 @@ def _count_scans(monkeypatch):
                         ("tail_rank", phrases.tail_rank_plain)):
         monkeypatch.setattr(phrases, name,
                             counted_phrases(f"phrase_{name}", plain))
-    monkeypatch.setattr(phrases, "launches",
-                        dict.fromkeys(phrases.KERNELS, 0))
 
 
 def _kr_part(launches):
@@ -320,7 +317,7 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
     card. Row f's refusal is the card's own: a zero-copy text of 2^31
     characters."""
     doc_mbp, bench = DOC_MBP, (0.12, 0.16)
-    synth, rb_of = chip_smoke._synth_collection, chip_smoke._rb_of
+    synth, rb_of = t_bench.synth_collection, t_bench.rb_of
     accepted = [rb_of(synth(n * doc_mbp, n)) for n in (10, 20)] + [
         chip_smoke._bench_rb(m) for m in bench]
     limit = _dict_flat(rb_of(synth(10 * doc_mbp, 10, snp_rate=0.01)))
@@ -330,12 +327,11 @@ def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
         return torch.device("cpu")
 
     def counted_plain(ext, n_real, w, mod):
-        kr_mask.launches += 1
+        trace.count(kr_mask.COUNTER)
         return kr_mask.break_mask_plain(ext, n_real, w, mod)
     monkeypatch.setattr(t_engine, "resolve", on_cpu)
     monkeypatch.setattr(t_device, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
-    monkeypatch.setattr(kr_mask, "launches", 0)
     _count_scans(monkeypatch)
     monkeypatch.setattr(t_pfp, "RMQ_FLAT_LIMIT", limit)
     # row d2's two worker processes inherit it: two threads each

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from mumemto_tpu_torch import trace
+from mumemto_tpu_torch import bench, trace
 from mumemto_tpu_torch.kernels import scan
 
 # several test workers share the machine's cores
@@ -66,9 +66,9 @@ def test_cpu_matches_numpy(op, reverse, dtype, kind):
     numpy's running max / min."""
     t_dtype, np_dtype = DTYPES[dtype]
     x = _input(kind, np_dtype)
-    before = scan.launches
-    got = _call(torch.from_numpy(x), op, reverse)
-    assert scan.launches == before
+    got, _s, launches = bench.counted(
+        torch, lambda: _call(torch.from_numpy(x), op, reverse))
+    assert launches["running_scan"] == 0
     assert got.dtype == t_dtype and got.shape == (x.size,)
     assert np.array_equal(got.numpy(), _want(x, op, reverse))
     assert np.array_equal(scan.running_plain(torch.from_numpy(x), op,
@@ -97,10 +97,8 @@ def _card():
 
 
 def _same_on_card(x: torch.Tensor, op: str, reverse: bool) -> None:
-    before = scan.launches
-    got = _call(x, op, reverse)
-    torch.cuda.synchronize()
-    assert scan.launches == before + (x.numel() > 0)
+    got, _s, launches = bench.counted(torch, lambda: _call(x, op, reverse))
+    assert launches["running_scan"] == (x.numel() > 0)
     want = scan.running_plain(x, op, reverse)
     assert got.dtype == x.dtype and got.shape == x.shape
     assert int((got != want).sum()) == 0, (op, reverse, x.dtype, x.numel())

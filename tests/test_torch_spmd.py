@@ -30,6 +30,7 @@ from mumemto_tpu.parallel import seqpfp as jax_seqpfp
 from mumemto_tpu_torch import cli as t_cli
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.ops.pfp import ScanSizeError
 from mumemto_tpu_torch.parallel import mesh, mumemtom, partition, seqpfp
@@ -600,7 +601,7 @@ def test_named_rows_s_p_rehearsal(monkeypatch):
         return CPU
 
     def counted_plain(ext, n_real, w, mod):
-        kr_mask.launches += 1
+        trace.count(kr_mask.COUNTER)
         return kr_mask.break_mask_plain(ext, n_real, w, mod)
 
     class NoCard(_NoCard):
@@ -612,7 +613,6 @@ def test_named_rows_s_p_rehearsal(monkeypatch):
     for mod in (t_engine, t_device, mesh):
         monkeypatch.setattr(mod, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
-    monkeypatch.setattr(kr_mask, "launches", 0)
     _count_scans(monkeypatch)
     report = {}
     chip_smoke.phase_wide(TorchOnCpu(), report, ("p", "s"),

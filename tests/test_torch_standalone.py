@@ -622,8 +622,8 @@ def test_cli_constants_copy(tmp_path):
                                   (0.05, 8, 1, 0.001)])
 def test_synth_collection_copy(args):
     """The harness's copy (mumemto_tpu_torch.bench.synth_collection, which
-    chip_smoke.py imports as _synth_collection) gives bench.py's bytes for
-    the seed."""
+    chip_smoke.py calls as bench.synth_collection) gives bench.py's bytes
+    for the seed."""
     from mumemto_tpu_torch import bench as t_bench
     sys.path.insert(0, ROOT)
     try:
@@ -633,6 +633,6 @@ def test_synth_collection_copy(args):
         sys.path.remove(ROOT)
     mbp, n_docs, seed, snp = args
     want = bench.synth_collection(mbp, n_docs, seed=seed, snp_rate=snp)
-    for copy in (t_bench.synth_collection, chip_smoke._synth_collection):
-        got = copy(mbp, n_docs, seed=seed, snp_rate=snp)
-        assert len(got) == n_docs and _same(got, want)
+    assert chip_smoke.bench is t_bench
+    got = t_bench.synth_collection(mbp, n_docs, seed=seed, snp_rate=snp)
+    assert len(got) == n_docs and _same(got, want)

@@ -270,3 +270,53 @@ def test_suffix_lcp_arrays_refuses_wide_chars():
     text[5] = 200
     with pytest.raises(ValueError, match="< 127"):
         t_suffix.suffix_lcp_arrays(_t(text))
+
+
+# --- the one size rounding -------------------------------------------------
+
+def _pfp_bucket(n, lo=1024):
+    """ops/pfp.bucket as it was before bucket moved here."""
+    n = max(n, lo)
+    p = 1 << (n - 1).bit_length()
+    if p // 2 + p // 4 >= n:
+        return p // 2 + p // 4
+    return p
+
+
+def _pipeline_bucket(m, lo=256):
+    """ops/pipeline.bucket as it was before bucket moved here."""
+    m = max(m, 1)
+    p = 1 << (m - 1).bit_length()
+    if p // 2 + p // 4 >= m:
+        p = p // 2 + p // 4
+    return max(lo, p)
+
+
+def _pad_size(n, min_pad=4):
+    """engine.pad_size as it was before bucket moved here."""
+    target = max(n + min_pad, 4096)
+    p = 1 << (target - 1).bit_length()
+    if p // 2 + p // 4 >= target:
+        return p // 2 + p // 4
+    return p
+
+
+def _sizes():
+    """0..4096, then each power of two and each 0.75 multiple of one up to
+    2^31, and the sizes one either side of them."""
+    out = set(range(4097))
+    for k in range(2, 32):
+        for edge in (1 << k, 3 << (k - 2)):
+            out |= {edge - 1, edge, edge + 1}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("lo", [8, 256, 1024, 4096])
+def test_bucket_is_the_three_roundings_it_replaces(lo):
+    """suffix.bucket(n, lo) equals ops/pfp's and ops/pipeline's old
+    buckets at every floor, and bucket(n + 4, lo=4096) engine.pad_size."""
+    for n in _sizes():
+        got = t_suffix.bucket(n, lo=lo)
+        assert got == _pfp_bucket(n, lo) == _pipeline_bucket(n, lo), (n, lo)
+        if lo == 4096:
+            assert t_suffix.bucket(n + 4, lo=lo) == _pad_size(n), n

@@ -25,7 +25,7 @@ import torch
 
 from mumemto_tpu_torch import engine, native, options, trace
 from mumemto_tpu_torch.ops import pfp as ops_pfp
-from mumemto_tpu_torch.parallel import mesh
+from mumemto_tpu_torch.parallel import mesh, seqpfp
 from mumemto_tpu_torch.refbuilder import build_from_sequences
 
 # several test workers share the machine's cores
@@ -224,17 +224,124 @@ def test_a_raising_call_closes_its_spans(where, tmp_path, monkeypatch):
     assert parent[last["id"]]["name"] in ("pfp.build", ROOT)
 
 
-@pytest.mark.parametrize("route", ["mum", "direct", "mem_f3"])
+# the hook's names on each route as the parent commit's code gave them,
+# before stages were trace.stage spans
+PARENT_HOOKS = {
+    "mum": ["build_pfp", "dict_index", "parse_side", "expand_sort_analyze",
+            "compact", "emit"],
+    "mem_f3": ["build_pfp", "dict_index", "parse_side",
+               "expand_sort_analyze", "compact", "emit"],
+    "partial_k1": ["build_pfp", "dict_index", "parse_side",
+                   "expand_sort_analyze", "compact", "emit"],
+    "merge": ["build_pfp", "dict_index", "parse_side", "expand_sort_analyze",
+              "compact", "emit", "merge"],
+    "direct": ["suffix_array", "lcp", "analyze", "compact", "emit"],
+    "direct_mem": ["suffix_array", "lcp", "analyze", "compact", "emit"],
+    "arrays_out": ["build_pfp", "dict_index", "parse_side",
+                   "expand_sort_analyze", "arrays_out", "compact", "emit"],
+    "read_parse": ["read_parse", "dict_index", "parse_side",
+                   "expand_sort_analyze", "compact", "emit"],
+    "seq_sharded": ["build_pfp", "dict_index", "parse_side", "operands",
+                    "sort", "analyze", "assemble"],
+}
+SEQ_ROOT = "parallel.find_matches_seq_sharded"
+# the sharded call's stage spans, in the order of its hook's names
+SEQ_STAGES = ["pfp.build", "pfp.dict_index", "pfp.parse_side",
+              "wide.operands", "wide.sort", "wide.analyze", "wide.assemble"]
+
+
+def _seq_call(phase=None):
+    rb = _rb()
+    opts = options.normalize(rb.num_docs, quiet=True)
+    return seqpfp.find_matches_seq_sharded(
+        rb, opts, mesh.seq_devices(2, "cpu"), phase=phase)
+
+
+@pytest.mark.parametrize("route", list(PARENT_HOOKS))
 def test_phase_hook_names_are_those_of_the_parent(route, tmp_path):
     """The hook gets the same names in the same order with tracing off and
-    on, and they are the names it got before there were spans."""
+    on, and they are the names it got before stages were trace.stage
+    spans; on the sharded route each comes where its stage span ends."""
+    run = _seq_call if route == "seq_sharded" else \
+        lambda phase: _call(route, tmp_path, phase=phase)
+    if route == "read_parse":
+        _call(route, tmp_path)  # writes the -p files
     off, on = [], []
-    a = _call(route, tmp_path, phase=off.append)
+    a = run(off.append)
     trace.enable()
-    b = _call(route, tmp_path, phase=on.append)
+    b = run(on.append)
     trace.disable()
-    assert off == on == ROUTES[route][4]
+    assert off == on == PARENT_HOOKS[route]
     assert a.output_bytes() == b.output_bytes()
+    if route == "seq_sharded":
+        spans = trace.drain()["spans"]
+        root = spans[0]
+        assert root["name"] == SEQ_ROOT and root["parent"] is None
+        stages = [s["name"] for s in spans if s["parent"] == root["id"]
+                  and s["name"] in SEQ_STAGES]
+        assert stages == SEQ_STAGES
+
+
+# --- stages and their hook --------------------------------------------------
+
+@pytest.mark.parametrize("on", [False, True])
+def test_stage_calls_the_calls_hook(on):
+    """A stage calls the hook of the call it runs under, once, where its
+    span ends, on its own thread, with tracing off and on; outside a call
+    or in a call without a hook it calls none."""
+    seen = []
+    if on:
+        trace.enable()
+    with trace.stage("s0", "none"):
+        pass
+    with trace.call(ROOT, hook=lambda n: seen.append(
+            (n, threading.get_ident()))):
+        with trace.stage("s1", "one"):
+            assert seen == []
+        with trace.stage("s2", "two"):
+            pass
+    with trace.call(ROOT):
+        with trace.stage("s3", "three"):
+            pass
+    trace.disable()
+    me = threading.get_ident()
+    assert seen == [("one", me), ("two", me)]
+    spans = trace.drain()["spans"]
+    names = ["s0", ROOT, "s1", "s2", ROOT, "s3"] if on else []
+    assert [s["name"] for s in spans] == names
+    if on:
+        assert spans[2]["parent"] == spans[3]["parent"] == spans[1]["id"]
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_a_raising_stage_calls_no_hook(on):
+    seen = []
+    if on:
+        trace.enable()
+    with pytest.raises(RuntimeError, match="planted"):
+        with trace.call(ROOT, hook=seen.append):
+            with trace.stage("ok", "ok"):
+                pass
+            with trace.stage("bad", "bad"):
+                raise RuntimeError("planted")
+    trace.disable()
+    assert seen == ["ok"]
+    spans = trace.drain()["spans"]
+    assert all(s["end_ns"] is not None for s in spans)
+    assert [s["name"] for s in spans] == ([ROOT, "ok", "bad"] if on else [])
+
+
+def test_a_hooked_call_with_tracing_off_records_nothing(tmp_path):
+    """Off, a call with a hook keeps the hook alone: the hook runs, and
+    there is nothing to drain; without a hook the call and its stages are
+    the shared no-op context."""
+    seen = []
+    assert trace.stage("a", "b") is trace.call(ROOT) is trace.span("c")
+    assert trace.call(ROOT, hook=seen.append) is not trace.span("c")
+    _call("mum", tmp_path, phase=seen.append)
+    _seq_call(seen.append)
+    assert seen == PARENT_HOOKS["mum"] + PARENT_HOOKS["seq_sharded"]
+    assert trace.drain() == {"spans": [], "counters": {}}
 
 
 # --- threads -----------------------------------------------------------------

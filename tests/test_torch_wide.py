@@ -35,12 +35,15 @@ import jax.numpy as jnp
 from mumemto_tpu import options
 from mumemto_tpu.ops import pfp as jax_pfp
 from mumemto_tpu.parallel import widepfp as jax_widepfp
+from mumemto_tpu_torch import bench as t_bench
 from mumemto_tpu_torch import cli as t_cli
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch import formats
+from mumemto_tpu_torch import trace
 from mumemto_tpu_torch.kernels import kr_mask
 from mumemto_tpu_torch.ops import pfp as t_pfp
+from mumemto_tpu_torch.ops import suffix as t_suffix
 from mumemto_tpu_torch.parallel import mesh as t_mesh
 from mumemto_tpu_torch.parallel import mumemtom, seqpfp
 from test_torch_scale import _count_scans, _NoCard, _TorchOnCpu
@@ -101,7 +104,7 @@ def test_host_prep_equals_jax_wide(rows_per, n_occ, nr):
     package's uint32 preparation value for value: a 2^31 bucket of
     0.82 x 2^31 rows keeps int32 cumcnt, rows past 2^31 take int64."""
     ours, theirs, doc_ends, n_rows = _fake_pfps(rows_per, n_occ)
-    assert 0.75 * 2**31 < n_rows and t_pfp.bucket(n_rows) == nr
+    assert 0.75 * 2**31 < n_rows and t_suffix.bucket(n_rows, lo=1024) == nr
     h = t_pfp._host_prep(ours, doc_ends)
     j = jax_pfp._host_prep(theirs, doc_ends, 6, row_dtype=np.uint32)
     assert h["nr"] == j["nr"] == nr
@@ -117,7 +120,7 @@ def test_host_prep_equals_jax_wide(rows_per, n_occ, nr):
 def walk_collection(chip_smoke):
     """129 documents of 5 kbp, 0.01% SNPs (one a document)."""
     docs = chip_smoke._wide_docs(WALK_DOCS * 0.005, WALK_DOCS)
-    return chip_smoke._rb_of(docs)
+    return t_bench.rb_of(docs)
 
 
 def test_row_w_small_equals_engine_jax_and_baseline(chip_smoke, tmp_path,
@@ -138,9 +141,9 @@ def test_row_w_small_equals_engine_jax_and_baseline(chip_smoke, tmp_path,
     assert got.num_matches > 20
     prefix = str(tmp_path / "w")
     t_engine.write_outputs(got, rb, prefix)
-    base = chip_smoke._cpu_baseline(rb.text, rb.seq_lengths, opts)
-    assert chip_smoke._occ_stats(prefix + ".mums", rb.num_docs) == \
-        chip_smoke._triple(base)
+    base = t_bench.cpu_baseline(rb.text, rb.seq_lengths, opts)
+    assert t_bench.occ_stats(prefix + ".mums", rb.num_docs) == \
+        t_bench.triple(base)
 
 
 def _stand_ins(monkeypatch):
@@ -151,12 +154,11 @@ def _stand_ins(monkeypatch):
         return CPU
 
     def counted_plain(ext, n_real, w, mod):
-        kr_mask.launches += 1
+        trace.count(kr_mask.COUNTER)
         return kr_mask.break_mask_plain(ext, n_real, w, mod)
     for mod in (t_engine, t_device, t_mesh):
         monkeypatch.setattr(mod, "resolve", on_cpu)
     monkeypatch.setattr(kr_mask, "break_mask", counted_plain)
-    monkeypatch.setattr(kr_mask, "launches", 0)
     _count_scans(monkeypatch)
     # the dcn workers inherit it: two threads each
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
@@ -169,8 +171,8 @@ def test_phase_wide_rehearsal(chip_smoke, monkeypatch):
     on one card is refused as row w's is on the card and its partitions
     are not: every triple equals the live baseline_cpu's."""
     doc_mbp, n_docs = 0.003, WALK_DOCS
-    rb = chip_smoke._rb_of(chip_smoke._wide_docs(doc_mbp * n_docs, n_docs))
-    limit = t_pfp.bucket(int(rb.text.size) + 1)
+    rb = t_bench.rb_of(chip_smoke._wide_docs(doc_mbp * n_docs, n_docs))
+    limit = t_suffix.bucket(int(rb.text.size) + 1, lo=1024)
     _stand_ins(monkeypatch)
     monkeypatch.setattr(t_pfp, "ROW_LIMIT", limit)
 
@@ -189,11 +191,11 @@ def test_phase_wide_rehearsal(chip_smoke, monkeypatch):
     rows = report["rows"]
     assert list(rows) == ["wr", "kw", "w", "f1", "w2", "wbase"]
     assert rows["kw"]["mismatches"] == 0 and rows["kw"]["breaks"] > 0
-    base = chip_smoke._triple(rows["wbase"])
+    base = t_bench.triple(rows["wbase"])
     assert base["matches"] > 0
     wr = rows["wr"]
     assert wr["bytes_equal_single"] and wr["shards"] == SHARDS
-    assert wr["triple"] == chip_smoke._triple(wr["baseline"])
+    assert wr["triple"] == t_bench.triple(wr["baseline"])
     assert wr["kr"]["mismatches"] == 0 and wr["kr"]["chunks"] == 8
     w = rows["w"]
     assert w["triple"] == base and w["rows"] > 0.75 * w["nr"]
@@ -227,7 +229,7 @@ def test_phase_wide_m3_rehearsal(chip_smoke, monkeypatch):
     refused, four dcn ranks take it, and the merged triple equals the live
     baseline_cpu's, started before the row."""
     from test_torch_scale import _dict_flat
-    union = chip_smoke._rb_of(chip_smoke._synth_collection(0.16, 40))
+    union = t_bench.rb_of(t_bench.synth_collection(0.16, 40))
     limit = _dict_flat(union)
     real_rmq = t_pfp._rmq_query
 
@@ -246,7 +248,7 @@ def test_phase_wide_m3_rehearsal(chip_smoke, monkeypatch):
     assert m3["refused"]["refused"]
     assert [p["docs"] for r in m3["ranks"] for p in r["partitions"]] == \
         [11, 11, 11, 10]
-    assert m3["merged"] == chip_smoke._triple(m3["baseline"])
+    assert m3["merged"] == t_bench.triple(m3["baseline"])
     assert m3["merged"]["matches"] > 0
 
 

@@ -126,7 +126,8 @@ def _host_split(torch, kr_mask, build, reps: int = 200) -> dict:
          lambda: torch.empty((), dtype=torch.int32, device=ext.device)),
         ("build.launch on preallocated outputs (memset + kernel)",
          lambda: build.launch(fn, ext, ext.data_ptr(), mask.data_ptr(),
-                              count.data_ptr(), ne, ne - 64, 10, 100)),
+                              count.data_ptr(), ne, ne - 64, 10, 100,
+                              counter=kr_mask.COUNTER)),
         ("break_mask", lambda: kr_mask.break_mask(ext, ne - 64, 10, 100))]
     out = {}
     for name, step in steps:
