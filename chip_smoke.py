@@ -31,6 +31,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bound, the tail kernel's time and largest group, rounds, collisions
      and launches; every path below must launch the phrase kernels once a
      KR launch (_sorted), and the kernels line sums them over the paths;
+ 4d. the MEM text kernel (phase_mem_render) against its numpy twin
+     (kernels/mem_render.render_plain) on windows the size of the
+     benchmark's 10 x 3.6 Mbp -f 3 emit and on 300 lines 4096 wide, byte
+     for byte, timed by CUDA events beside its bytes bound and the twin's
+     host time; every find_matches call of a MEM path below must launch
+     it once (_drive, library.mem);
   5. the main path end to end on the bench input (bench.synth_collection,
      8 docs, 0.1% SNP, revcomp, strict multi-MUMs) at 8 and 32 Mbp: stage
      times, Mbp/s, peak device memory, and the match count against a live
@@ -147,7 +153,8 @@ set to 0 just before it and read just after; each PFP path (and -P, -A,
 and every path of phase 10) must have launched the KR kernel, and -g, -p
 and -a must have launched none; every PFP path, -g, -p, -A, -a, the
 sharded scans and merge --collective must have launched the running max /
-min kernel. The
+min kernel, and each find_matches call of _drive's MEM paths and
+library.mem the MEM text kernel once. The
 line before the last is the kernels' JSON record, the last line is
 {"ok": true, "device": {...}}. Everything is also written to
 chiprun_out/chip_smoke.json. Imports nothing of JAX and nothing of the
@@ -175,11 +182,13 @@ if __name__ == "__main__" and not os.path.isdir(
 from mumemto_tpu_torch import bench  # noqa: E402
 
 LAUNCH_KEYS = ("kr_break_mask", "add_one", "running_scan",  # bench.counted's
-               "phrase_fingerprint", "phrase_verify", "phrase_tail_rank")
+               "phrase_fingerprint", "phrase_verify", "phrase_tail_rank",
+               "mem_render")
 KR_SOURCE = "mumemto_tpu_torch/kernels/csrc/kr_mask.cu"
 KR_REPLACES = "mumemto_tpu/ops/pallas_kernels.py:103"
 SCAN_SOURCE = "mumemto_tpu_torch/kernels/csrc/scan.cu"
 PHRASES_SOURCE = "mumemto_tpu_torch/kernels/csrc/phrases.cu"
+RENDER_SOURCE = "mumemto_tpu_torch/kernels/csrc/mem_render.cu"
 PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
 PROBE_REPLACES = "tools/mosaic_probe.py:25"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the data sheet's peak)
@@ -820,13 +829,80 @@ def phase_phrases(torch, report):
         json.dump(out, f, indent=1)
 
 
+def _render_windows(np, rng, m, W, nv_lo, nv_hi, span):
+    """(L, tpos, docs, neg, nv) of m MEM lines of width W: nv_lo to nv_hi
+    occurrences a line, positions below `span` (a tenth of the '-' ones
+    negative, as a '-' match past its document's end prints), 10 documents,
+    lengths 20 to 2000."""
+    nv = rng.integers(nv_lo, nv_hi + 1, m).astype(np.int64)
+    L = rng.integers(20, 2000, m).astype(np.int64)
+    tpos = rng.integers(0, span, (m, W)).astype(np.int64)
+    neg = rng.random((m, W)) < 0.5
+    tpos[neg & (rng.random((m, W)) < 0.1)] *= -1
+    docs = rng.integers(0, 10, (m, W)).astype(np.int32)
+    return L, tpos, docs, neg, nv
+
+
+def phase_mem_render(torch, report, lines=92_000):
+    """The MEM text kernel (kernels/mem_render) against its numpy twin,
+    byte for byte: on windows the size of the benchmark's mem_f3 emit
+    (10 x 3.6 Mbp with -f 3: ~92 k `lines` of 2-18 occurrences, positions
+    below 7.2 M, W 32) and on 300 lines 4096 wide (-f 0's uncapped
+    windows). The first is timed by CUDA events (median of 5 runs of 20
+    launches) beside its bound, its text written once and its inputs read
+    once at HBM_BYTES_PER_S, and the twin's host time."""
+    import numpy as np
+    from mumemto_tpu_torch import engine
+    from mumemto_tpu_torch.kernels import mem_render
+    dev = engine.resolve("cuda")
+    rng = np.random.default_rng(21)
+    out = {"card": bench.smi(), "cases": {}}
+    for label, m, W, lo, hi in (("mem_f3 size", lines, 32, 2, 18),
+                                ("4096 wide", 300, 4096, 1, 4096)):
+        L, tpos, docs, neg, nv = _render_windows(np, rng, m, W, lo, hi,
+                                                 7_200_000)
+        t = [torch.from_numpy(a).to(dev) for a in (L, tpos, docs, neg, nv)]
+        valid = torch.arange(W, device=dev) < t[4][:, None]
+        lengths = mem_render.line_lengths(t[0], t[1], t[2], valid)
+        line_off = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)])
+        n_bytes = int(line_off[-1])
+        got = mem_render.render(*t, line_off, n_bytes).cpu().numpy()
+        t0 = time.perf_counter()
+        want = mem_render.render_plain(L, tpos, docs, neg, nv,
+                                       line_off.cpu().numpy())
+        plain_s = time.perf_counter() - t0
+        bad = int((got != want).sum()) if got.size == want.size else -1
+        n_occ = int(nv.sum())
+        case = {"lines": m, "W": W, "occurrences": n_occ, "bytes": n_bytes,
+                "mismatched_bytes": bad, "plain_ms": plain_s * 1e3}
+        if label == "mem_f3 size":
+            # text written once; per line L, nv and two offsets; per
+            # occurrence its position, document and strand
+            moved = n_bytes + 32 * m + 13 * n_occ
+            case["ms"] = statistics.median(_event_ms(
+                torch, lambda: mem_render.render(*t, line_off, n_bytes), 20)
+                for _ in range(5))
+            case["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+            case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        out["cases"][label] = case
+        log(f"[mem_render] {label}: {json.dumps(case)}")
+        if bad:
+            raise AssertionError(f"mem_render {label}: {bad} bytes differ "
+                                 "from the twin's")
+    main = out["cases"]["mem_f3 size"]
+    out.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms")})
+    out["mismatched_bytes"] = 0
+    report["mem_render"] = out
+
+
 def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     """One path end to end on the card: a cold and a warm find_matches,
     their kernel launches counted (bench.counted), then a live
     native/baseline_cpu run with the same options. The match count must
     equal the baseline's and be above 0. The PFP backend must
     have launched the KR kernel in both runs, the direct backend never;
-    both must have launched the running max / min kernel.
+    both must have launched the running max / min kernel, and in MEM mode
+    the MEM text kernel once a run (never in MUM mode).
     Returns (record, warm result)."""
     from mumemto_tpu_torch import engine
     cold, cold_s, l_cold = bench.counted(torch, lambda: engine.find_matches(
@@ -844,6 +920,9 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
         raise AssertionError(f"{label}: the direct backend launched "
                              f"kernels: {launches}")
     _scanned(label, launches)
+    if launches["mem_render"] != (0 if opts.mum_mode else 2):
+        raise AssertionError(f"{label}: {launches['mem_render']} MEM text "
+                             "kernel launches in two runs")
     if res.output_bytes() != cold.output_bytes():
         raise AssertionError(f"{label}: two runs disagree")
     base_mbp_s, base_matches = bench.run_cpu_baseline(rb.text, rb.seq_lengths,
@@ -1254,9 +1333,9 @@ def phase_slice(torch, report, res_8mbp, res_f3, work):
     log(f"[slice] library.mem {json.dumps(out['library.mem -f 3'])}")
     if len(lib) != EXPECT_8MBP or not same:
         raise AssertionError("library.mum 8 Mbp != the main path's result")
-    if len(lib_m) != EXPECT_F3_8MBP:
+    if len(lib_m) != EXPECT_F3_8MBP or lmm["mem_render"] != 1:
         raise AssertionError(f"library.mem -f 3: {len(lib_m)} matches, "
-                             f"expected {EXPECT_F3_8MBP}")
+                             f"expected {EXPECT_F3_8MBP}; launches {lmm}")
     rb = _bench_rb(8)
     t0 = time.perf_counter()
     n_mum = properties.check_mum_properties(res_8mbp, rb, max_checked=200)
@@ -2363,7 +2442,8 @@ def phase_bench(torch, report, argv=BENCH_ARGV):
         out["records"][rec["config"]] = rec
         out["paths"][f"bench {rec['config']}"] = {
             "kr_break_mask": rec["kr_launches"] * rec["calls"], "add_one": 0,
-            "running_scan": rec["scan_launches"], **rec["phrase_launches"]}
+            "running_scan": rec["scan_launches"], **rec["phrase_launches"],
+            "mem_render": rec["render_launches"]}
     report["bench"] = out
 
 
@@ -3970,6 +4050,7 @@ def main() -> int:
     phase_kernel(torch, report)
     phase_scan(torch, report)
     phase_phrases(torch, report)
+    phase_mem_render(torch, report)
     res_8mbp, mums_32mbp = phase_end_to_end(torch, report)
     res_f3 = phase_mem(torch, report)
     phase_walk(torch, report)
@@ -4039,7 +4120,16 @@ def main() -> int:
         "plain_ms": None,
         "bound_ms": big[k]["bound_ms"] if k != "tail_rank" else None,
         "bound_by": "bytes" if k != "tail_rank" else "comparisons",
-        "library_ms": None} for k in ("fingerprint", "verify", "tail_rank")]}
+        "library_ms": None} for k in ("fingerprint", "verify", "tail_rank")]
+        + [{
+        "name": "mem_render", "route": "cuda", "source": RENDER_SOURCE,
+        "replaces": None, "launches": sum(
+            v["mem_render"] for v in report["path_launches"].values()),
+        "max_abs_err": report["mem_render"]["mismatched_bytes"],
+        "ms": report["mem_render"]["ms"],
+        "plain_ms": report["mem_render"]["plain_ms"],
+        "bound_ms": report["mem_render"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}]}
     device = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}

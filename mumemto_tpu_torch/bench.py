@@ -14,9 +14,10 @@ warm-up), `reps` timed calls, one call under the engine's stage hook and,
 on a card, one call under torch.profiler, and prints one JSON line on
 stdout: walls (median, best, max, spread), Mbp/s, the stage split, each
 card's peak allocation over the timed calls, the device's busy share, the
-KR kernel's launches per call, the running max / min kernel's and the
-phrase kernels' launches over all calls (each call must have sorted its
-phrases on the card once a KR launch), the count against the one on
+KR kernel's launches per call, the running max / min kernel's, the
+phrase kernels' and the MEM text kernel's launches over all calls (each
+call must have sorted its phrases on the card once a KR launch), the
+count against the one on
 record and,
 where it ran, against a live native/baseline_cpu run on the same bytes
 (on by default below 100 Mbp). The last line has bench.py's keys for the
@@ -378,9 +379,11 @@ def counted(torch, fn):
 def launch_counts(totals: dict) -> dict:
     """Every kernel's launches in trace.totals()'s counts, by the kernel's
     name."""
-    from mumemto_tpu_torch.kernels import kr_mask, phrases, probe, scan
+    from mumemto_tpu_torch.kernels import (kr_mask, mem_render, phrases,
+                                           probe, scan)
     counters = {"kr_break_mask": kr_mask.COUNTER, "add_one": probe.COUNTER,
-                "running_scan": scan.COUNTER, **phrases.COUNTERS}
+                "running_scan": scan.COUNTER, **phrases.COUNTERS,
+                "mem_render": mem_render.COUNTER}
     return {k: totals.get(c, 0) for k, c in counters.items()}
 
 
@@ -651,14 +654,15 @@ def run_config(torch, cfg, dev, args) -> dict:
         del docs
         log(f"[bench] {cfg.name}: {mbp:g} Mbp, {ndocs} docs, "
             f"{rb.text.size} chars, set up in {time.perf_counter() - t0:.1f} s")
-        n_calls = scans = 0
+        n_calls = scans = renders = 0
         phrase_launches = dict.fromkeys(phrases.KERNELS, 0)
 
         def call(fn):
-            nonlocal n_calls, scans
+            nonlocal n_calls, scans, renders
             out, s, launches = counted(torch, fn)
             n_calls += 1
             scans += launches["running_scan"]
+            renders += launches["mem_render"]
             for k in phrase_launches:
                 phrase_launches[k] += launches[k]
             got = route.count(out)
@@ -731,6 +735,7 @@ def run_config(torch, cfg, dev, args) -> dict:
                 torch, lambda: trace_cards(torch, traced, work))
             n_calls += 1
             scans += launches["running_scan"]
+            renders += launches["mem_render"]
             for k in phrase_launches:
                 phrase_launches[k] += launches[k]
             if launches["kr_break_mask"] != per_call or got != matches or \
@@ -774,6 +779,7 @@ def run_config(torch, cfg, dev, args) -> dict:
         "busy_share": busy["busy_s"] / busy["traced_s"] if busy else None,
         "busy": busy, "kr_launches": per_call,
         "scan_launches": scans, "phrase_launches": phrase_launches,
+        "render_launches": renders,
         "calls": n_calls,
         "matches": matches, "expected": expected, "baseline": base,
         "vs_baseline": mbp / best / base["mbp_per_s"] if base else None}

@@ -3,17 +3,19 @@ device.
 
 Port of mumemto_tpu/engine.py: the scan (the PFP backend in ops/pfp.py,
 or the direct -g backend, ops/pipeline.scan_collection) and the
-compactions (ops/pipeline.py) run on the device given; the host receives
-only the compacted windows and assembles the output lines. A scan can
-also resume from .dict/.parse files (-p) and write its SA/LCP/BWT rows as
+compactions (ops/pipeline.py) run on the device given. In MUM mode the
+host receives the compacted windows and assembles the output lines; in
+MEM mode the lines' text is written where the windows are
+(_emit_mems, kernels/mem_render) and read back once. A scan can also
+resume from .dict/.parse files (-p) and write its SA/LCP/BWT rows as
 .sa/.lcp/.bwt files (-A); find_matches_from_arrays replays those (-a).
 
 The host-side code below (MatchResults, _doc_metadata, _emit_mums,
-_MemRecords, _join_ragged, _emit_mems, _merge_thresholds, thresh_arrays,
+_MemRecords, _join_ragged, _merge_thresholds, thresh_arrays,
 write_outputs and the host half of find_matches_from_arrays) is a copy of
 the numpy code in mumemto_tpu/engine.py, which cannot be imported here
 because that module loads jax. Keep the two in step: the output bytes
-must be equal.
+must be equal. _emit_mems is the port's own and writes the same bytes.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from mumemto_tpu_torch import formats, progress, trace
 from mumemto_tpu_torch.options import MatchOptions
 from mumemto_tpu_torch.device import resolve
+from mumemto_tpu_torch.kernels import mem_render
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import pfp as ops_pfp
 from mumemto_tpu_torch.ops import pipeline as ops_pipeline
@@ -249,23 +252,26 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, backend,
                 trace.count(trace.READBACKS)
             maxw = int((e0[:m] - s0[:m]).max()) if m else 1
             W = ops_suffix.bucket(maxw, lo=8)
-            s, e, L, w_sa, w_da, w_prev = _to_host(
-                ops_pipeline.compact_windows_mem(res, n, M, W, rb.num_docs))
+            # the windows stay where they are: _emit_mems renders them
+            windows = [t[:m] for t in ops_pipeline.compact_windows_mem(
+                res, n, M, W, rb.num_docs)]
     with trace.stage("engine.emit", "emit"):
-        valid = (s[:m, None] + np.arange(W)) < e[:m, None]
         if opts.mum_mode:
+            valid = (s[:m, None] + np.arange(W)) < e[:m, None]
             _emit_mums(results, s[:m], e[:m], L[:m], w_sa[:m],
                        w_da[:m].astype(np.int32), valid, opts,
                        doc_offsets, doc_lens, rb.num_docs)
         else:
-            w_da = w_da.astype(np.int32)
+            s, e, L, w_sa, w_da, w_prev = windows
+            valid = (s[:, None] + torch.arange(W, device=s.device)) < \
+                e[:, None]
             # deferred distinct-count (check_doc_range unique >= k,
             # mem_finder.hpp:265-289)
-            unique = (valid & (w_prev[:m] < s[:m, None])).sum(axis=1)
-            keep = unique >= opts.num_distinct
-            _emit_mems(results, s[:m][keep], e[:m][keep], L[:m][keep],
-                       w_sa[:m][keep], w_da[:m][keep], valid[keep],
-                       opts, doc_offsets, doc_lens)
+            unique = (valid & (w_prev < s[:, None])).sum(dim=1)
+            trace.count(trace.READBACKS)  # nonzero reads its size back
+            keep = torch.nonzero(unique >= opts.num_distinct).flatten()
+            _emit_mems(results, s[keep], e[keep], L[keep], w_sa[keep],
+                       w_da[keep], valid[keep], opts, doc_offsets, doc_lens)
 
     if opts.merge:
         with trace.stage("engine.merge", "merge"):
@@ -454,68 +460,65 @@ def _join_ragged(pieces, starts):
     return np.add.reduceat(pieces.astype(object), starts)
 
 
+def _starts(n: torch.Tensor) -> torch.Tensor:
+    """The exclusive scan of the counts n, with their total last."""
+    return torch.cat([n.new_zeros(1), torch.cumsum(n, 0)])
+
+
 def _emit_mems(results, s, e, L, w_sa, w_da, valid, opts,
                doc_offsets, doc_lens):
     """write_mem semantics (mem_finder.hpp:210-263), incl. the last-element
-    '-' transform quirk (no -1 at :248), vectorized over the compacted
-    (m, W) windows."""
+    '-' transform quirk (no -1 at :248), over the compacted (m, W) windows
+    (every row with at least one valid column): numpy arrays, or tensors
+    of one device. The positions, their text widths and the line offsets
+    are computed with PyTorch where the windows are; kernels/mem_render
+    writes every line into one byte buffer there (the CUDA kernel on a
+    card, its numpy twin on the CPU), which is read back once with the
+    flat occurrence arrays of the records."""
     m = len(s)
     if m == 0:
         results.mem_lines = []
         results.mem_records = []
         return
-    fmt, join = "engine.emit_mems.format", "engine.emit_mems.join"
+    L, w_sa, w_da, valid = (torch.as_tensor(a) for a in (L, w_sa, w_da,
+                                                         valid))
+    dev = valid.device
     with trace.span("engine.emit_mems.positions"):
-        num_docs = len(doc_lens)
         W = valid.shape[1]
-        nv = valid.sum(axis=1).astype(np.int64)
-        docs = np.minimum(w_da, num_docs - 1)
-        pos = w_sa.astype(np.int64) - doc_offsets[docs]
-        dl = doc_lens[docs]
+        nv = valid.sum(dim=1)
+        L = L.to(torch.int64)
+        docs = torch.clamp(w_da.to(torch.int64), max=len(doc_lens) - 1)
+        pos = w_sa.to(torch.int64) - torch.as_tensor(doc_offsets,
+                                                     device=dev)[docs]
+        dl = torch.as_tensor(doc_lens, device=dev)[docs]
         if opts.use_revcomp:
             neg = valid & (pos >= dl)
         else:
-            neg = np.zeros_like(valid)
-        is_last = np.arange(W)[None, :] == (nv[:, None] - 1)
+            neg = torch.zeros_like(valid)
+        is_last = torch.arange(W, device=dev) == (nv[:, None] - 1)
         # '-' transform: 2*len - pos - L - 1, except the LAST occurrence
         # of a match drops the -1 (mem_finder.hpp:248)
-        tpos = np.where(neg, 2 * dl - pos - L[:, None].astype(np.int64)
-                        - 1 + is_last, pos)
-
+        tpos = torch.where(neg, 2 * dl - pos - L[:, None] - 1 + is_last,
+                           pos)
+        doc_ids = w_da.to(torch.int32)
+        line_off = _starts(mem_render.line_lengths(L, tpos, doc_ids, valid))
+        offs = _starts(nv)
+        n_bytes, n_occ = _to_host([torch.stack([line_off[-1],
+                                                offs[-1]])])[0].tolist()
         # flat occurrence arrays, row-major (valid is a prefix mask per
-        # row; every emitted interval has >= 2 rows, required by the
-        # ragged joins)
-        assert nv.min() > 0, "empty emission window"
-        tposf = tpos[valid]
-        docf = w_da[valid].astype(np.int32)
-        negf = neg[valid]
-        offs = np.zeros(m + 1, dtype=np.int64)
-        np.cumsum(nv, out=offs[1:])
-        starts = offs[:-1]
-    with trace.span(fmt):
-        # trailing comma after every occurrence except the row's last
-        rowid = np.repeat(np.arange(m), nv)
-        jj = np.arange(offs[-1]) - starts[rowid]
-        sep = np.where(jj == nv[rowid] - 1, "", ",")
-    cols = []
-    for piece in (lambda: np.char.mod("%d", tposf),
-                  lambda: np.char.mod("%d", docf),
-                  lambda: np.where(negf, "-", "+")):
-        with trace.span(fmt):
-            pieces = np.char.add(piece(), sep)
-        with trace.span(join):
-            cols.append(_join_ragged(pieces, starts))
-        del pieces
-    pos_col, doc_col, strand_col = cols
-    with trace.span(fmt):
-        head = np.char.add(np.char.mod("%d", L.astype(np.int64)), "\t")
-    with trace.span(join):
-        full = (head.astype(object) + pos_col + "\t" + doc_col + "\t"
-                + strand_col + "\n")
-        results.mem_lines = "".join(full.tolist()).encode().splitlines(
-            keepends=True)
-    results.mem_records = _MemRecords(L.astype(np.int64), tposf, docf,
-                                      negf, offs)
+        # row)
+        rows = torch.repeat_interleave(torch.arange(m, device=dev), nv,
+                                       output_size=n_occ)
+        flat = rows * W + torch.arange(n_occ, device=dev) - offs[rows]
+        flats = [a.reshape(-1)[flat] for a in (tpos, doc_ids, neg)]
+    with trace.span("engine.emit_mems.format"):
+        text = mem_render.render(L, tpos, doc_ids, neg, nv, line_off,
+                                 n_bytes)
+        text, L, tposf, docf, negf, offs = _to_host([text, L, *flats, offs])
+    with trace.span("engine.emit_mems.join"):
+        results.mem_lines = text.tobytes().splitlines(keepends=True)
+    assert len(results.mem_lines) == m, "empty emission window"
+    results.mem_records = _MemRecords(L, tposf, docf, negf, offs)
 
 
 def _merge_thresholds(results, has0, sa_first0, prev_ctx, next_ctx,

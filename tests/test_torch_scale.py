@@ -32,7 +32,7 @@ from mumemto_tpu_torch import bench as t_bench
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch import trace
-from mumemto_tpu_torch.kernels import kr_mask, phrases, scan
+from mumemto_tpu_torch.kernels import kr_mask, mem_render, phrases, scan
 from mumemto_tpu_torch.ops import intervals as t_intervals
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.ops import suffix as t_suffix
@@ -271,9 +271,9 @@ class _TorchOnCpu:
 
 
 def _count_scans(monkeypatch):
-    """The running max / min and the phrase kernels as the rehearsals see
-    them: their plain versions, each call counted in the kernel's trace
-    counter as a launch on the card is."""
+    """The running max / min, the phrase kernels and the MEM text kernel as
+    the rehearsals see them: their plain versions, each call counted in the
+    kernel's trace counter as a launch on the card is."""
     def counted(op):
         def run(x, reverse=False):
             trace.count(scan.COUNTER)
@@ -292,6 +292,12 @@ def _count_scans(monkeypatch):
                         ("tail_rank", phrases.tail_rank_plain)):
         monkeypatch.setattr(phrases, name,
                             counted_phrases(f"phrase_{name}", plain))
+    render = mem_render.render  # on CPU tensors, its twin
+
+    def counted_render(*a):
+        trace.count(mem_render.COUNTER)
+        return render(*a)
+    monkeypatch.setattr(mem_render, "render", counted_render)
 
 
 def _kr_part(launches):
@@ -304,6 +310,26 @@ def _dict_flat(rb):
     pfp = t_pfp.build_pfp(rb.text, torch.device("cpu"))
     nd = t_pfp._pad_phrase_arrays(pfp)[-1]
     return nd * (t_suffix._num_levels(nd) + 1)
+
+
+def test_phase_mem_render_rehearsal(chip_smoke, monkeypatch):
+    """chip_smoke's phase 4d at 400 lines on the CPU: "cuda" resolves to
+    the CPU, so render runs its twin, CUDA events are host clocks, and
+    nvidia-smi is not asked."""
+    monkeypatch.setattr(t_engine, "resolve", lambda device:
+                        torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke.bench, "smi", lambda: "no card")
+    report = {}
+    chip_smoke.phase_mem_render(_TorchOnCpu(), report, lines=400)
+    out = report["mem_render"]
+    assert out["mismatched_bytes"] == 0
+    assert set(out["cases"]) == {"mem_f3 size", "4096 wide"}
+    main = out["cases"]["mem_f3 size"]
+    assert main["lines"] == 400 and main["occurrences"] >= 800
+    assert 0 < main["bound_ms"] and main["ms"] == out["ms"] > 0
+    wide = out["cases"]["4096 wide"]
+    assert wide["W"] == 4096 and wide["mismatched_bytes"] == 0
+    assert wide["bytes"] > 300 * 4096  # lines of thousands of occurrences
 
 
 def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
