@@ -1829,9 +1829,10 @@ def _shard_dict_scans(torch, out, phase11, res_8mbp, res_f3, mums_32mbp):
 
 def _shard_dict_tables(torch, out):
     """The sharded index's tables against the single-device index's on the
-    8 Mbp dictionary, in the form that does not depend on the order inside
-    a tie block: d, grp_of_pos, grp_cross exactly, lcpD clamped at
-    maxlen + 1, isaD at whole-phrase starts."""
+    8 Mbp dictionary, in the form their consumers read: d, grp_of_pos,
+    grp_cross exactly, isaD at whole-phrase starts, and each row's lcpD
+    clamped one past the nearer of its pair's phrase separators (the
+    single-device doubling stops there, the sharded one at 2^lvl_cap)."""
     from mumemto_tpu_torch import engine
     from mumemto_tpu_torch.ops import pfp as ops_pfp
     from mumemto_tpu_torch.parallel import mesh, sharddict
@@ -1843,15 +1844,24 @@ def _shard_dict_tables(torch, out):
               h["npz"], h["total_real"])
     static = (h["nd"], h["ne"], h["w"], h["lvl_cap"], h["lvl_static"],
               h["seed_thr"], h["lcp_thr"])
-    clamp = int(pfp.phrase_ln.max()) + 1
+    rem = ops_pfp._dict_setup(*arrays, h["nd"], h["ne"])[2]
+
+    def clamped(isa, lcp):
+        """lcp with row i at most min(rem) + 1 over SA rows i-1, i."""
+        sa = torch.empty_like(isa)
+        sa[isa.long()] = torch.arange(isa.numel(), dtype=isa.dtype,
+                                      device=isa.device)
+        r = rem[sa.long()]
+        cap = torch.cat([r[:1] * 0, torch.minimum(r[:-1], r[1:]) + 1])
+        return torch.minimum(lcp, cap)
     starts = h["d_starts"][1:h["npz"] + 1].long()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = ops_pfp._dict_index(*arrays, *static)
+    ref = ops_pfp._dict_index(*arrays, *static, h["dict_live"])
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
     entry = {"nd": h["nd"], "lvl_cap": h["lvl_cap"],
-             "lvl_static": h["lvl_static"], "clamp": clamp,
+             "lvl_static": h["lvl_static"],
              "phrases": h["npz"], "single_device_s": ref_s, "shards": {}}
     for nshards in (1, 4):
         fn = sharddict.compile_sharded_dict_index(
@@ -1866,8 +1876,8 @@ def _shard_dict_tables(torch, out):
             "peak_alloc_bytes": torch.cuda.max_memory_allocated()}
         same = {
             "d": torch.equal(ref[0], got[0]),
-            "lcpD clamped": torch.equal(torch.clamp(ref[1], max=clamp),
-                                        torch.clamp(got[1], max=clamp)),
+            "lcpD clamped": torch.equal(clamped(ref[2], ref[1]),
+                                        clamped(got[2], got[1])),
             "isaD at phrase starts": torch.equal(ref[2][starts],
                                                  got[2][starts]),
             "grp_of_pos": torch.equal(ref[3], got[3]),

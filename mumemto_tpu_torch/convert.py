@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mumemto_tpu_torch.ops.pfp import PFPData
+from mumemto_tpu_torch.ops.pfp import PFPData, _dict_live
 
 
 def from_jax_res(res: dict, device) -> dict:
@@ -56,7 +56,8 @@ def from_jax_prepare(prep: dict, device) -> dict:
     cumcnt is int32 when it fits and int64 otherwise (a uint32 prepare),
     cumC and doc_ends are int64. slt_table (a sequence of levels, or one
     flat level-major array of mp entries per level) becomes the port's
-    list of levels; it is converted, not rebuilt."""
+    list of levels; it is converted, not rebuilt. dict_live, which the
+    JAX package has no use for, is counted from phrase_ln."""
     out = {k: int(prep[k]) for k in _PREP_INTS}
     out.update(seed_thr=prep["seed_thr"], lcp_thr=prep["lcp_thr"])
     for k in _PREP_I32:
@@ -72,6 +73,8 @@ def from_jax_prepare(prep: dict, device) -> dict:
     if not isinstance(slt, (list, tuple)):
         slt = np.asarray(slt).reshape(-1, out["mp"])
     out["slt_table"] = [_tensor(level, torch.int32, device) for level in slt]
+    out["dict_live"] = _dict_live(np.asarray(prep["phrase_ln"]),
+                                  out["lvl_cap"])
     return out
 
 

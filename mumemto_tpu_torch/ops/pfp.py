@@ -7,8 +7,9 @@ for the algorithm):
                 kernels/kr_mask.py on the card), compacted with nonzero.
   2. dictionary unique phrases ranked on the device (sort_phrases:
                 fingerprint dedupe, 7-byte MSD rounds, kernels/phrases.py).
-  3. dict index D materialized on the device, depth-capped prefix
-                doubling, PLCP or rank-descent LCP, suffix groups.
+  3. dict index D materialized on the device, prefix doubling bounded
+                by the phrase separators, PLCP or rank-descent LCP,
+                suffix groups.
   4. parse side parse SA + LCP + ISA, s_lcp_T and its range-min table.
   5. expansion  one row per text position, stably sorted by
                 (group id, parse ISA) into SA order; per-row LCP from the
@@ -246,16 +247,19 @@ def _refine(ext, st, ln, rec) -> torch.Tensor:
 
 def _segmented_min_after_valid(lcp: torch.Tensor,
                                valid: torch.Tensor) -> torch.Tensor:
-    """out[i] = min(lcp[j]) over j in (prev_valid_row(i), i], exact at
-    valid rows (the only rows any consumer reads)."""
-    n = lcp.shape[0]
-    seg_start = torch.ones(n, dtype=I32, device=lcp.device)
-    seg_start[1:] = valid[:-1].to(I32)
-    seg_id = (torch.cumsum(seg_start, 0, dtype=I32) - 1).to(I64)
-    seg_min = torch.full((n,), ops_intervals.INT32_MAX, dtype=I32,
-                         device=lcp.device)
-    seg_min.scatter_reduce_(0, seg_id, lcp, reduce="amin", include_self=True)
-    return seg_min[seg_id]
+    """out[i] = min(lcp[j]) over j in (prev_valid_row(i), i] for lcp >= 0:
+    a running min that restarts after each valid row, as one running max
+    of (valid rows before i) << 32 | (INT32_MAX - lcp[i]). No atomics: a
+    scatter-min into each segment's slot took 1.5 s instead of 0.03 in
+    some calls on an H100 once the dictionary's zero pad (32 M rows of
+    one segment) came in another order."""
+    key = torch.zeros(lcp.shape[0], dtype=I64, device=lcp.device)
+    torch.cumsum(valid[:-1], 0, out=key[1:])
+    key.bitwise_left_shift_(32).bitwise_or_(ops_intervals.INT32_MAX - lcp)
+    run = scan.running_max(key)
+    del key
+    low = run.bitwise_and_(ops_intervals.INT32_MAX).to(I32)
+    return low.neg_().add_(ops_intervals.INT32_MAX)
 
 
 def _min_table(values: torch.Tensor) -> list:
@@ -402,10 +406,12 @@ def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
 
 def _dict_setup(ext, phrase_st, phrase_ln, d_starts, npz: int, total: int,
                 nd: int, ne: int):
-    """D = concat(sorted phrases + SEP) + TERM, zero-padded to nd, and the
-    per-position proper-suffix length (-1 outside proper phrase suffixes).
-    Phrase arrays are bucket-padded with zero-length pads at d_starts ==
-    total; their scatters are dropped."""
+    """(d, meta, rem): D = concat(sorted phrases + SEP) + TERM, zero-padded
+    to nd; the per-position proper-suffix length (-1 outside proper phrase
+    suffixes); and each position's remaining length, the characters before
+    its phrase's separator (0 at SEP, TERM and the pad). Phrase arrays are
+    bucket-padded with zero-length pads at d_starts == total; their
+    scatters are dropped."""
     dev = ext.device
     npzb = phrase_st.shape[0] - 1
     pos = torch.arange(nd, dtype=I32, device=dev)
@@ -419,9 +425,25 @@ def _dict_setup(ext, phrase_st, phrase_ln, d_starts, npz: int, total: int,
     ch = ext[torch.clamp(st_of + off, 0, ne - 1)]
     d = torch.where(in_phrase, ch, SEP).to(torch.uint8)
     d = torch.where(pos >= total, TERM, d).to(torch.uint8)
-    good = in_phrase & (pos < total) & (off >= 1)
-    meta = torch.where(good, plen_of - off, -1).to(I32)
-    return d, meta
+    rem = torch.where(in_phrase & (pos < total), plen_of - off, 0).to(I32)
+    meta = torch.where((rem > 0) & (off >= 1), rem, -1)
+    return d, meta, rem
+
+
+def _dict_live(phrase_ln: np.ndarray, levels: int) -> tuple:
+    """live[l]: the dictionary positions the bounded doubling sorts in
+    round l (ops/suffix._bounded_rounds), those with remaining length r
+    and r + 1 >= 2^(l-1): a phrase of length n has one at each r in 1..n,
+    so n + 2 - 2^(l-1) of them when that is positive. Rounds 0 and 1 never
+    run on the dictionary (its seed covers 4 or 8 characters): 0."""
+    lens = np.asarray(phrase_ln, np.int64)
+    lens = lens[lens > 0]
+    live = [0, 0]
+    for lvl in range(2, levels + 1):
+        least = (1 << (lvl - 1)) - 1  # the least r a live row has
+        lens = lens[lens >= least]
+        live.append(int(lens.sum()) - (least - 1) * lens.size)
+    return tuple(live)
 
 
 def _dict_starts(phrase_ln: np.ndarray) -> np.ndarray:
@@ -434,22 +456,38 @@ def _dict_starts(phrase_ln: np.ndarray) -> np.ndarray:
 
 def _dict_index(ext, phrase_st, phrase_ln, d_starts, npz: int, total: int,
                 nd: int, ne: int, w: int, lvl_cap: int, lvl_static: int,
-                seed_thr, lcp_thr, probe_words: int = 2):
-    """Dictionary index: D, depth-capped SA doubling, LCP (PLCP for <= 8
-    letters, rank descent otherwise), ISA and suffix groups. Returns
-    (d, lcpD, isaD, grp_of_pos, grp_cross)."""
-    d, pos_meta = _dict_setup(ext, phrase_st, phrase_ln, d_starts, npz,
-                              total, nd, ne)
-    saD, histD, lvlD = ops_suffix._suffix_array_impl(
-        d, nd, packed_init=True, max_lvl=lvl_cap, alpha_thresholds=seed_thr)
-    if seed_thr is not None:
-        lcpD, isaD = ops_suffix._lcp_plcp_impl(
-            saD, histD, d, nd, lvl_static, seed_thr,
-            deep_cap=max(nd // 3, 1024), probe_words=probe_words)
-    else:
-        lcpD = ops_suffix._lcp_impl(saD, histD, lvlD, nd, levels=lvl_static,
-                                    text=d, bottom_thresholds=lcp_thr)
-        isaD = _isa_dev(saD, nd)
+                seed_thr, lcp_thr, live: tuple, probe_words: int = 2):
+    """Dictionary index: D, depth-capped SA doubling bounded by the phrase
+    separators, LCP (PLCP for <= 8 letters, rank descent otherwise), ISA
+    and suffix groups. Returns (d, lcpD, isaD, grp_of_pos, grp_cross).
+
+    live: _dict_live's counts (_host_prep's dict_live). The bounded
+    doubling (ops/suffix._bounded_rounds) orders saD as the unbounded one
+    does outside the zero pad and gives every pair of suffixes that differ
+    before their separators its exact LCP; a pair equal through its
+    separators reads an LCP above them, the exact one or more. d,
+    grp_of_pos and grp_cross, and everything built on them, are the
+    unbounded doubling's."""
+    d, pos_meta, rem = _dict_setup(ext, phrase_st, phrase_ln, d_starts, npz,
+                                   total, nd, ne)
+    with trace.span("pfp.dict.sa"):
+        lvlD = min(ops_suffix._num_levels(nd), lvl_cap) + 1
+        histD, start_lvl = ops_suffix._seed_history(
+            d, nd, lvlD - 1, packed_init=True, alpha_thresholds=seed_thr)
+        saD = ops_suffix._bounded_rounds(histD, start_lvl, rem, live)
+    del rem
+    with trace.span("pfp.dict.lcp"):
+        if seed_thr is not None:
+            lcpD, isaD = ops_suffix._lcp_plcp_impl(
+                saD, histD, d, nd, lvl_static, seed_thr,
+                deep_cap=max(nd // 3, 1024), probe_words=probe_words,
+                counter=trace.DICT_DESCENT_ROWS)
+        else:
+            lcpD = ops_suffix._lcp_impl(
+                saD, histD, lvlD, nd, levels=lvl_static, text=d,
+                bottom_thresholds=lcp_thr, counter=trace.DICT_DESCENT_ROWS)
+            isaD = _isa_dev(saD, nd)
+    del histD
     lcpD = ops_suffix.canonicalize_pad_lcp(lcpD, saD, total, nd)
     grp_of_pos, grp_cross = _dict_groups(d, saD, lcpD, pos_meta, nd, w)
     return d, lcpD, isaD, grp_of_pos, grp_cross
@@ -551,7 +589,7 @@ def _host_prep(pfp: PFPData, doc_ends: np.ndarray):
         "doc_ends": up(doc_ends.astype(np.int64), I64 if wide else I32),
         "ne": int(pfp.ext.shape[0]), "nd": nd, "nr": nr, "mp": mp, "w": w,
         "lvl_cap": lvl_cap, "lvl_static": lvl_static, "seed_thr": seed_thr,
-        "lcp_thr": lcp_thr,
+        "lcp_thr": lcp_thr, "dict_live": _dict_live(pfp.phrase_ln, lvl_cap),
     }
 
 
@@ -749,7 +787,7 @@ def pfp_scan_prepare(pfp: PFPData, doc_ends: np.ndarray,
                 pfp.ext, h["phrase_st"], h["phrase_ln"], h["d_starts"],
                 h["npz"], h["total_real"], h["nd"], h["ne"], h["w"],
                 h["lvl_cap"], h["lvl_static"], h["seed_thr"], h["lcp_thr"],
-                probe_words=probe_words)
+                h["dict_live"], probe_words=probe_words)
     with trace.stage("pfp.parse_side", "parse_side"):
         isaP, slt_table = _parse_side(h["parse"], h["cumC"], h["d_starts"],
                                       lcpD, isaD, h["mp"])
@@ -792,9 +830,9 @@ def write_parse_files(rb, prefix: str, device: torch.device, w: int = 10,
 
     def up(a):
         return torch.from_numpy(a).to(device)
-    d, _meta = _dict_setup(pfp.ext, up(phrase_st), up(phrase_ln),
-                           up(d_starts_pad), npz, total_real, nd,
-                           int(pfp.ext.shape[0]))
+    d, _meta, _rem = _dict_setup(pfp.ext, up(phrase_st), up(phrase_ln),
+                                 up(d_starts_pad), npz, total_real, nd,
+                                 int(pfp.ext.shape[0]))
     with open(prefix + ".dict", "wb") as f:
         f.write(d[:pfp.d_len].cpu().numpy().tobytes())
     with open(prefix + ".parse", "wb") as f:

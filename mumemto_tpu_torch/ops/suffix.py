@@ -8,8 +8,10 @@ All row arrays are int32; sort keys are int64.
 
 Ties: the JAX package sorts with an unstable lax.sort and stops the
 dictionary doubling at a depth cap, so the order of suffixes that share
-more than 2^cap characters is implementation-defined in both packages.
-The rank history does not depend on that order.
+more than 2^cap characters is implementation-defined there. The port
+stops each dictionary suffix one character past its phrase separator
+(_bounded_rounds), where its consumers stop reading; its order and LCPs
+are exact up to that point.
 """
 
 from __future__ import annotations
@@ -91,6 +93,30 @@ def _round(rank: torch.Tensor, key2: torch.Tensor, n: int):
             new_rank_sorted[-1])
 
 
+def _seed_history(text: torch.Tensor, n: int, L: int,
+                  packed_init: bool = False,
+                  alpha_thresholds: tuple | None = None):
+    """The doubling's history (L + 1 rows of n) with its seed rows filled:
+    (hist, start_lvl), the first round still to run; hist[start_lvl - 1]
+    is the seed's rank. See _suffix_array_impl for the seeds."""
+    rank0 = text.to(I32)
+    hist = torch.zeros((L + 1, n), dtype=I32, device=text.device)
+    if alpha_thresholds is not None and L >= 3:
+        code, rank2, rank4, rank8 = _seed_packed8(text, n, alpha_thresholds)
+        hist[0], hist[1], hist[2], hist[3] = code, rank2, rank4, rank8
+        return hist, 4
+    if packed_init:
+        # chars stored as char+1 so a beyond-the-array slot packs as 0,
+        # which sorts before every real char
+        tp = rank0 + 1
+        rank2 = (tp << 7) | _shift_static(tp, 1, n, 0)
+        rank4 = (rank2 << 14) | _shift_static(rank2, 2, n, 0)
+        hist[0], hist[1], hist[2] = rank0, rank2, rank4
+        return hist, 3
+    hist[0] = rank0
+    return hist, 1
+
+
 def _suffix_array_impl(text: torch.Tensor, n: int, packed_init: bool = False,
                        max_lvl: int | None = None,
                        alpha_thresholds: tuple | None = None):
@@ -106,29 +132,9 @@ def _suffix_array_impl(text: torch.Tensor, n: int, packed_init: bool = False,
     L = _num_levels(n)
     if max_lvl is not None:
         L = min(L, max_lvl)
-    dev = text.device
-    rank0 = text.to(I32)
-    hist = torch.zeros((L + 1, n), dtype=I32, device=dev)
-
-    if alpha_thresholds is not None and L >= 3:
-        code, rank2, rank4, rank8 = _seed_packed8(text, n, alpha_thresholds)
-        hist[0], hist[1], hist[2], hist[3] = code, rank2, rank4, rank8
-        start_rank, start_lvl = rank8, 4
-    elif packed_init:
-        # chars stored as char+1 so a beyond-the-array slot packs as 0,
-        # which sorts before every real char
-        tp = rank0 + 1
-        rank2 = (tp << 7) | _shift_static(tp, 1, n, 0)
-        rank4 = (rank2 << 14) | _shift_static(rank2, 2, n, 0)
-        hist[0], hist[1], hist[2] = rank0, rank2, rank4
-        start_rank, start_lvl = rank4, 3
-    else:
-        hist[0] = rank0
-        start_rank, start_lvl = rank0, 1
-    sa = torch.sort(start_rank, stable=True).indices.to(I32)
-
-    rank = start_rank
-    lvl = start_lvl
+    hist, lvl = _seed_history(text, n, L, packed_init, alpha_thresholds)
+    rank = hist[lvl - 1]
+    sa = torch.sort(rank, stable=True).indices.to(I32)
     while lvl <= L:
         key2 = _shift_static(rank, 1 << (lvl - 1), n, -1)
         rank, sa, last = _round(rank, key2, n)
@@ -139,6 +145,101 @@ def _suffix_array_impl(text: torch.Tensor, n: int, packed_init: bool = False,
             if int(last) == n - 1:
                 break
     return sa, hist, (L + 1 if max_lvl is not None else lvl)
+
+
+def _first_of_runs(keys: torch.Tensor) -> torch.Tensor:
+    """out[j]: the index of the first element of j's run of equal keys
+    (keys sorted), int32."""
+    m = keys.shape[0]
+    j = torch.arange(m, dtype=I32, device=keys.device)
+    new = torch.ones(m, dtype=torch.bool, device=keys.device)
+    new[1:] = keys[1:] != keys[:-1]
+    return scan.running_max(torch.where(new, j, 0))
+
+
+def _compact(values: torch.Tensor, keep: torch.Tensor, k: int):
+    """values[keep], in order, where the host knows k = keep.sum(): a
+    scatter to the kept rows' places, so nothing is read back. A k that
+    disagrees with keep stops the device (an asynchronous assert), where
+    it would leave unwritten rows or write past the end."""
+    at = torch.cumsum(keep, 0, dtype=I32) - 1
+    if at.numel():
+        torch._assert_async(at[-1] == k - 1)
+    out = torch.empty(k + 1, dtype=values.dtype, device=values.device)
+    out[torch.where(keep, at, k)] = values
+    return out[:k]
+
+
+def _bounded_rounds(hist: torch.Tensor, start_lvl: int, rem: torch.Tensor,
+                    live: tuple):
+    """The dictionary's depth-capped doubling, each round bounded by the
+    phrase separators: from _seed_history's (hist, start_lvl), fills
+    hist[start_lvl:] and returns sa.
+
+    rem[p] is the number of characters from p to its phrase's separator
+    (0 at a separator, the terminator and the zero pad). Round l sorts
+    only the positions with rem + 1 >= 2^(l-1), live[l] of them, counted
+    on the host (ops/pfp._dict_live), so no round reads anything back. A
+    group of the 2^(l-1)-prefix order whose prefix holds its separator
+    before its last character holds suffixes equal through the separator
+    and one character past it; nothing that reads the index looks further
+    (ops/pfp: _dict_groups, _build_slt), so the group keeps its rows in
+    sa and its rank from then on. Groups are all live or all stopped:
+    equal prefixes hold their separator at the same offset.
+
+    A rank is the sa position of its group's first row, so the ranks of
+    two groups never collide and a round touches only its own rows: the
+    live rows, in position order, are stably sorted by (rank, rank
+    2^(l-1) on), and each group's rows refill the group's own slots. Rows
+    left tied are in position order, which is the suffix order of
+    suffixes equal through their separators (the phrase after each
+    separator decides, and the one the terminator follows is never tied):
+    sa equals the unbounded rounds' outside the zero pad, whose order
+    nothing reads.
+
+    A history row keeps each rank as of the round its group stopped: for
+    two suffixes that differ before their separators, equal ranks at level
+    l mean equal 2^l prefixes, as without the bound; two equal through
+    their separators read equal from their group's last round on, so the
+    rank descent gives them an LCP above their separator."""
+    n = hist.shape[1]
+    skey, sa = torch.sort(hist[start_lvl - 1], stable=True)
+    trace.count(trace.DICT_SORT_ROWS, n)
+    sa = sa.to(I32)
+    rank = route_set(sa, _first_of_runs(skey))
+    del skey
+    pos = torch.arange(n, dtype=I32, device=sa.device)
+    for lvl in range(start_lvl, hist.shape[0]):
+        half = 1 << (lvl - 1)
+        k = int(live[lvl])
+        pos = _compact(pos, rem[pos] >= half - 1, k)
+        if k:
+            _bounded_round(sa, rank, pos, half)
+        hist[lvl] = rank
+    return sa
+
+
+def _bounded_round(sa: torch.Tensor, rank: torch.Tensor, pos: torch.Tensor,
+                   half: int) -> None:
+    """One round of _bounded_rounds over the live rows pos (every row of
+    each group they touch, in position order): sa and rank updated in
+    place. Its temporaries die with the call, so a round holds no more
+    than the unbounded round it replaces."""
+    # a live row's separator is at most rem chars on: pos + half stays
+    # inside the text
+    key = rank[pos].to(I64).bitwise_left_shift_(32)
+    key.bitwise_or_(rank[pos + half])
+    skey, perm = torch.sort(key, stable=True)
+    del key
+    trace.count(trace.DICT_SORT_ROWS, pos.shape[0])
+    rows = pos[perm]
+    del perm
+    old = (skey >> 32).to(I32)
+    first = _first_of_runs(old)
+    j = torch.arange(pos.shape[0], dtype=I32, device=pos.device)
+    sa[old + (j - first)] = rows
+    del j
+    rank[rows] = old + (_first_of_runs(skey) - first)
 
 
 def _gather_pair(ranks, a, b, h, n):
@@ -153,14 +254,16 @@ def _gather_pair(ranks, a, b, h, n):
 
 def _lcp_impl(sa: torch.Tensor, hist: torch.Tensor, num_lvl: int, n: int,
               levels: int | None = None, text: torch.Tensor | None = None,
-              bottom_thresholds: tuple | None = None):
+              bottom_thresholds: tuple | None = None,
+              counter: str | None = None):
     """lcp[j] = LCP(suffix sa[j-1], suffix sa[j]); lcp[0] = 0, by exact
     rank descent over the history (two gathers per level).
 
     levels: number of computed rounds; descending from levels-1 skips the
     top levels that cannot match. bottom_thresholds (+ text), for <= 16
     distinct values: the last three levels (at most 7 remaining chars)
-    collapse into one compare of packed 7-char 4-bit codes."""
+    collapse into one compare of packed 7-char 4-bit codes. counter, when
+    given, counts the n pairs of each level (the packed bottom one)."""
     L = hist.shape[0] - 1
     top = L if levels is None else min(int(levels) - 1, L)
     a = torch.cat([sa[:1], sa[:-1]])
@@ -172,6 +275,8 @@ def _lcp_impl(sa: torch.Tensor, hist: torch.Tensor, num_lvl: int, n: int,
         ranks = hist[min(lvl, num_lvl - 1)]
         inb, ra, rb = _gather_pair(ranks, a, b, h, n)
         h = torch.where(inb & (ra == rb), h + (1 << lvl), h)
+    if counter:
+        trace.count(counter, n * (max(top - stop + 1, 0) + packed_bottom))
     if packed_bottom:
         code = _codes(text, bottom_thresholds)
         pack = code << 24
@@ -190,7 +295,7 @@ def _lcp_impl(sa: torch.Tensor, hist: torch.Tensor, num_lvl: int, n: int,
 def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
                    n: int, levels: int, probe_thr: tuple, deep_cap: int,
                    probe_words: int = 2, num_lvl: int | None = None,
-                   stats: dict | None = None):
+                   stats: dict | None = None, counter: str | None = None):
     """Adjacent-row LCP from a doubling history by the irreducible-LCP
     (PLCP) decomposition; returns (lcp, isa). Port of the JAX function of
     the same name (valid for <= 8-letter alphabets).
@@ -207,7 +312,8 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     whose rows from num_lvl on are zeros; the descent then reads row
     min(lvl, num_lvl - 1), as _lcp_impl does. None (the depth-capped
     dictionary, every row filled) reads row min(lvl, L). stats, when given,
-    receives n_deep, deep_cap and the branch taken."""
+    receives n_deep, deep_cap and the branch taken; counter, when given,
+    counts the descent's pairs, each level's and the packed probe's."""
     if probe_words not in (1, 2):
         raise ValueError(f"probe_words must be 1 or 2, got {probe_words}")
     L = hist.shape[0] - 1
@@ -259,6 +365,8 @@ def _lcp_plcp_impl(sa: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     def descend(a, b, m: int):
         """Rank descent for pairs (a, b): levels top..3, then one packed
         9-char probe for the < 8-char residual."""
+        if counter:
+            trace.count(counter, m * (max(top - 2, 0) + 1))
         h = torch.zeros(m, dtype=I32, device=dev)
         for lvl in range(top, 2, -1):
             inb, ra, rb = _gather_pair(hist[min(lvl, last_row)], a, b, h, n)

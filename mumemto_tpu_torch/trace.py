@@ -30,6 +30,11 @@ import threading
 import time
 
 READBACKS = "engine.readbacks"  # device-to-host copies a call makes
+# rows the dictionary's doubling passes to a sort, its seed sort included
+DICT_SORT_ROWS = "pfp.dict.sort_rows"
+# pairs the dictionary's LCP gathers by rank descent, one level at a time
+# (the packed bottom counts as one level)
+DICT_DESCENT_ROWS = "pfp.dict.descent_rows"
 
 _NOOP = contextlib.nullcontext()
 _enabled = False   # between enable() and disable()

@@ -11,12 +11,13 @@ second collection adds the ten codes RYKMSWBDHV. Both packages get the same
 numpy bytes, made from a seed; the JAX side runs on its CPU backend, as its
 own tests run it.
 
-Tolerance: none. Integers and output bytes are compared exactly; saD, isaD
-and lcpD in the form that does not depend on the order inside a tie block
-of the depth-capped doubling (isaD through the final rank row, lcpD at
-tie-block boundaries). The two collections share every array shape, so the
-JAX programs compile once per mode; -f 0 -F 0 runs on a fifth of the size,
-because its output is quadratic in the run length.
+Tolerance: none. Integers and output bytes are compared exactly; isaD and
+lcpD in the form their consumers read (torch_dict_form.dict_consumer_form:
+the order through each phrase separator, where the port's doubling stops,
+and the LCPs of suffixes that differ before it). The two collections share
+every array shape, so the JAX programs compile once per mode; -f 0 -F 0
+runs on a fifth of the size, because its output is quadratic in the run
+length.
 """
 
 import functools
@@ -27,14 +28,12 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 from mumemto_tpu import cli as jax_cli
 from mumemto_tpu import engine as jax_engine
 from mumemto_tpu import options
 from mumemto_tpu import refbuilder as jax_refbuilder
 from mumemto_tpu.ops import pfp as jax_pfp
-from mumemto_tpu.ops import suffix as jax_suffix
 from mumemto_tpu.parallel import seqpfp as jax_seqpfp
 from mumemto_tpu_torch import cli as t_cli
 from mumemto_tpu_torch import engine as t_engine
@@ -42,6 +41,7 @@ from mumemto_tpu_torch import refbuilder as t_refbuilder
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.parallel import mesh, seqpfp
 from conftest import build
+from torch_dict_form import dict_consumer_form
 from test_torch_engine import _same_files, _write_both
 
 # several test workers share the machine's cores
@@ -188,22 +188,18 @@ def test_dict_index(kind):
     d_t, lcp_t, isa_t, gp_t, gc_t = t_pfp._dict_index(
         pt.ext, ht["phrase_st"], ht["phrase_ln"], ht["d_starts"], ht["npz"],
         ht["total_real"], ht["nd"], ht["ne"], ht["w"], ht["lvl_cap"],
-        ht["lvl_static"], ht["seed_thr"], ht["lcp_thr"])
+        ht["lvl_static"], ht["seed_thr"], ht["lcp_thr"], ht["dict_live"])
     assert _eq(d_t, d_j)
     assert _eq(gp_t, gp_j)
     assert _eq(gc_t, gc_j)
     nd = hj["nd"]
-    _sa, hist, _l = jax_suffix._suffix_array_impl(
-        jnp.asarray(d_j), nd, packed_init=True, max_lvl=hj["lvl_cap"],
-        alpha_thresholds=hj["seed_thr"])
-    last = np.asarray(hist)[-1]
-    sa_j = np.argsort(np.asarray(isa_j), kind="stable")
-    sa_t = np.argsort(isa_t.numpy(), kind="stable")
-    assert (np.sort(sa_t) == np.arange(nd)).all()
-    assert (last[sa_t] == last[sa_j]).all()
-    boundary = np.ones(nd, bool)
-    boundary[1:] = last[sa_j][1:] != last[sa_j][:-1]
-    assert (lcp_t.numpy()[boundary] == np.asarray(lcp_j)[boundary]).all()
+    assert (np.sort(isa_t.numpy()) == np.arange(nd)).all()
+    # isaD and lcpD as the consumers read them: the order through each
+    # phrase separator, the LCPs of suffixes that differ before it
+    keys_j, cross_j = dict_consumer_form(d_j, isa_j, lcp_j, hj["total_real"])
+    keys_t, cross_t = dict_consumer_form(d_t, isa_t, lcp_t, hj["total_real"])
+    assert keys_t == keys_j
+    assert (cross_t == cross_j).all()
     # an LCP above the ACGT collection's whole depth: suffixes inside runs
     assert int(lcp_t.max()) >= 2900
 

@@ -2,12 +2,14 @@
 
 One parse (the JAX package's build_pfp) is carried into the port with
 convert.from_jax_pfp, and each stage's outputs are compared. Tolerance:
-exact equality for every integer table, with one exception the JAX code
-documents: the depth-capped dictionary SA orders suffixes that share more
-than 2^lvl_cap characters in an implementation-defined way, so isaD is
-compared through the final rank row and lcpD only at tie-block boundaries.
-Everything downstream of those ties (groups, s_lcp_T, the row stream and
-the interval analysis) is exact.
+exact equality for every integer table, with one exception: the
+dictionary's doubling stops where its consumers stop reading, at each
+suffix's phrase separator in the port (ops/suffix._bounded_rounds) and at
+2^lvl_cap characters in the JAX package, so isaD and lcpD are compared in
+the form the consumers read them (torch_dict_form.dict_consumer_form): the
+order through each separator, and every LCP between suffixes that differ
+before it. Everything downstream (groups, s_lcp_T, the row stream and the
+interval analysis) is exact.
 """
 
 import numpy as np
@@ -17,10 +19,10 @@ import torch
 import jax.numpy as jnp
 
 from mumemto_tpu.ops import pfp as jax_pfp
-from mumemto_tpu.ops import suffix as jax_suffix
 from mumemto_tpu_torch import convert
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from conftest import build, mutated_collection, rand_seq
+from torch_dict_form import dict_consumer_form
 from test_torch_suffix import with_n
 
 # several test workers share the machine's cores
@@ -74,7 +76,7 @@ def _dict_index_both(hj, ht, pj, pt):
     dt = t_pfp._dict_index(
         pt.ext, ht["phrase_st"], ht["phrase_ln"], ht["d_starts"], ht["npz"],
         ht["total_real"], ht["nd"], ht["ne"], ht["w"], ht["lvl_cap"],
-        ht["lvl_static"], ht["seed_thr"], ht["lcp_thr"])
+        ht["lvl_static"], ht["seed_thr"], ht["lcp_thr"], ht["dict_live"])
     return dj, dt
 
 
@@ -94,19 +96,13 @@ def test_host_prep_and_dict_index(staged):
     assert _eq(d_t, d_j)
     assert _eq(gp_t, gp_j)
     assert _eq(gc_t, gc_j)
-    # tie-invariant: isaD through the final rank row, lcpD at tie-block
-    # boundaries (see the module docstring)
-    nd = hj["nd"]
-    _sa, hist, _l = jax_suffix._suffix_array_impl(
-        jnp.asarray(d_j), nd, packed_init=True, max_lvl=hj["lvl_cap"],
-        alpha_thresholds=hj["seed_thr"])
-    last = np.asarray(hist)[-1]
-    sa_j = np.argsort(np.asarray(isa_j))
-    sa_t = np.argsort(isa_t.numpy())
-    assert (last[sa_t] == last[sa_j]).all()
-    boundary = np.ones(nd, bool)
-    boundary[1:] = last[sa_j][1:] != last[sa_j][:-1]
-    assert (lcp_t.numpy()[boundary] == np.asarray(lcp_j)[boundary]).all()
+    # isaD and lcpD as the consumers read them (see the module docstring)
+    total = hj["total_real"]
+    keys_j, cross_j = dict_consumer_form(d_j, isa_j, lcp_j, total)
+    keys_t, cross_t = dict_consumer_form(d_t, isa_t, lcp_t, total)
+    assert keys_t == keys_j
+    assert (cross_t == cross_j).all()
+    assert (cross_t >= 0).sum() > hj["nd"] // 4
 
 
 def test_parse_side(staged):
@@ -154,6 +150,23 @@ def test_expand_and_analyze(staged):
         for key in ("cand", "emit", "s", "e", "L", "prev_same", "da", "lcp",
                     "bwt", "sa"):
             assert _eq(res_t[key], res_j[key]), key
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 5000])
+def test_segmented_min_after_valid(rng, n):
+    """The running min of lcp that restarts after each valid row, on every
+    row (consumers read the valid ones), against a loop."""
+    lcp = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+    lcp[rng.random(n) < 0.3] = 0
+    valid = rng.random(n) < 0.2
+    want = np.empty(n, np.int64)
+    for i in range(n):
+        want[i] = lcp[i] if i == 0 or valid[i - 1] else min(want[i - 1],
+                                                             lcp[i])
+    got = t_pfp._segmented_min_after_valid(torch.from_numpy(lcp),
+                                           torch.from_numpy(valid))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("path", ["flat", "by level"])

@@ -6,10 +6,12 @@ The port runs on torch-CPU, every shard on the one CPU device (or on its
 two names "cpu" and "cpu:0", which the mesh treats as two devices, so the
 cross-device branches run); JAX runs on its 8-device CPU mesh. Inputs come
 from seeded numpy generators at the sizes of tests/test_sharddict.py.
-Tolerance: none. d, grp_of_pos and grp_cross are equal exactly, lcpD
-clamped at maxlen + 1 (rows inside a tie block may pair differently, and
-every such value is at least maxlen + 1 in every implementation), isaD at
-whole-phrase starts (never tied), and the output bytes exactly.
+Tolerance: none. d, grp_of_pos and grp_cross are equal exactly, isaD at
+whole-phrase starts (never tied), isaD and lcpD in the form their
+consumers read (torch_dict_form.dict_consumer_form: the order through each
+phrase separator and the LCPs of suffixes that differ before it; the
+port's single-device doubling stops at the separators, the sharded one and
+the JAX package's at 2^lvl_cap characters), and the output bytes exactly.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.parallel import mesh, seqpfp, sharddict
 from conftest import build, mutated_collection, rand_seq
+from torch_dict_form import dict_consumer_form
 
 # several test workers share the machine's cores
 torch.set_num_threads(2)
@@ -165,14 +168,14 @@ def test_block_sort_keys(num_keys):
 
 def _prepared(docs):
     """One collection parsed and host-prepared by the JAX package, carried
-    into the port: (jax pfp, jax host prep, arrays, static, maxlen, the D
-    starts of the real phrases)."""
+    into the port: (jax pfp, jax host prep, arrays, static, the position
+    of D's terminator, the D starts of the real phrases)."""
     rb = build(docs)
     pfp = jax_pfp.build_pfp(rb.text, w=10, mod=100)
     h = jax_pfp._host_prep(pfp, rb.doc_ends, rb.num_docs)
     arrays, static = convert.from_jax_dict_args(pfp, h, CPU)
     d_starts = np.asarray(h["d_starts"])[1:int(h["npz"]) + 1]
-    return pfp, h, arrays, static, int(pfp.phrase_ln.max()), d_starts
+    return pfp, h, arrays, static, int(h["total_real"]), d_starts
 
 
 def _jax_tables(pfp, h, nshards=None):
@@ -189,12 +192,22 @@ def _jax_tables(pfp, h, nshards=None):
     return convert.dict_tables_to_numpy(fn(*arrs))
 
 
-def _check_tables(ref, got, maxlen, d_starts):
+def _own_tables(h, arrays, static):
+    """The port's single-device index on _prepared's arrays, with the live
+    counts of the JAX package's host prep h."""
+    live = t_pfp._dict_live(np.asarray(h["phrase_ln"]), int(h["lvl_cap"]))
+    return convert.dict_tables_to_numpy(t_pfp._dict_index(*arrays, *static,
+                                                          live))
+
+
+def _check_tables(ref, got, total, d_starts):
     d_r, lcp_r, isa_r, gop_r, gcr_r = ref
     d_g, lcp_g, isa_g, gop_g, gcr_g = got
     assert (d_r == d_g).all()
-    clamp = maxlen + 1
-    assert (np.minimum(lcp_r, clamp) == np.minimum(lcp_g, clamp)).all()
+    keys_r, cross_r = dict_consumer_form(d_r, isa_r, lcp_r, total)
+    keys_g, cross_g = dict_consumer_form(d_g, isa_g, lcp_g, total)
+    assert keys_r == keys_g
+    assert (cross_r == cross_g).all()
     assert (gop_r == gop_g).all()
     assert (gcr_r == gcr_g).all()
     # whole-phrase suffixes are untied under the depth cap: exact ranks
@@ -203,7 +216,7 @@ def _check_tables(ref, got, maxlen, d_starts):
 
 @pytest.mark.parametrize("nshards", SHARDS)
 def test_block_dict_setup(rng, nshards):
-    _pfp, h, arrays, static, _maxlen, _st = _prepared(
+    _pfp, h, arrays, static, _total, _st = _prepared(
         mutated_collection(rng, 4, base_len=900))
     nd, ne = static[0], static[1]
     Bd = nd // nshards
@@ -211,7 +224,7 @@ def test_block_dict_setup(rng, nshards):
              for i in range(nshards)]
     d = _cat([p[0] for p in parts])
     meta = _cat([p[1] for p in parts])
-    d_t, meta_t = t_pfp._dict_setup(*arrays, nd, ne)
+    d_t, meta_t, _rem = t_pfp._dict_setup(*arrays, nd, ne)
     assert np.array_equal(d, d_t.numpy())
     assert np.array_equal(meta, meta_t.numpy())
     d_j, meta_j = jax_pfp._dict_setup(
@@ -223,34 +236,33 @@ def test_block_dict_setup(rng, nshards):
 
 @pytest.mark.parametrize("nshards,two", _meshes())
 def test_sharded_dict_tables(rng, nshards, two):
-    pfp, h, arrays, static, maxlen, d_starts = _prepared(
+    pfp, h, arrays, static, total, d_starts = _prepared(
         mutated_collection(rng, 4, base_len=900))
     got = convert.dict_tables_to_numpy(sharddict.compile_sharded_dict_index(
         _devices(nshards, two), *static)(*arrays))
     assert got[0].shape == (static[0],)
-    own = convert.dict_tables_to_numpy(t_pfp._dict_index(*arrays, *static))
-    _check_tables(own, got, maxlen, d_starts)
-    _check_tables(_jax_tables(pfp, h), got, maxlen, d_starts)
-    _check_tables(_jax_tables(pfp, h, nshards), got, maxlen, d_starts)
+    own = _own_tables(h, arrays, static)
+    _check_tables(own, got, total, d_starts)
+    _check_tables(_jax_tables(pfp, h), got, total, d_starts)
+    _check_tables(_jax_tables(pfp, h, nshards), got, total, d_starts)
 
 
 def test_sharded_dict_tables_repetitive(rng):
     """Heavy repeats give large tie blocks in the dictionary, the hazard
     class for the tie-order argument."""
     rep = rand_seq(rng, 80)
-    pfp, h, arrays, static, maxlen, d_starts = _prepared(
+    pfp, h, arrays, static, total, d_starts = _prepared(
         mutated_collection(rng, 4, base_len=600, insert_rep=rep))
     got = convert.dict_tables_to_numpy(sharddict.compile_sharded_dict_index(
         _devices(8), *static)(*arrays))
-    _check_tables(convert.dict_tables_to_numpy(
-        t_pfp._dict_index(*arrays, *static)), got, maxlen, d_starts)
-    _check_tables(_jax_tables(pfp, h), got, maxlen, d_starts)
-    _check_tables(_jax_tables(pfp, h, 8), got, maxlen, d_starts)
+    _check_tables(_own_tables(h, arrays, static), got, total, d_starts)
+    _check_tables(_jax_tables(pfp, h), got, total, d_starts)
+    _check_tables(_jax_tables(pfp, h, 8), got, total, d_starts)
 
 
 def test_block_sorts_counted(rng, monkeypatch):
     """block_sorts() is the number of distributed sorts one index makes."""
-    _pfp, _h, arrays, static, _maxlen, _st = _prepared(
+    _pfp, _h, arrays, static, _total, _st = _prepared(
         mutated_collection(rng, 3, base_len=500))
     calls = []
     real = sharddict._bitonic_block_sort
@@ -424,8 +436,9 @@ def test_cuda_sharded_tables_match_single_device(rng):
               h["npz"], h["total_real"])
     static = (h["nd"], h["ne"], h["w"], h["lvl_cap"], h["lvl_static"],
               h["seed_thr"], h["lcp_thr"])
-    ref = convert.dict_tables_to_numpy(t_pfp._dict_index(*arrays, *static))
+    ref = convert.dict_tables_to_numpy(t_pfp._dict_index(*arrays, *static,
+                                                         h["dict_live"]))
     got = convert.dict_tables_to_numpy(sharddict.compile_sharded_dict_index(
         mesh.seq_devices(4, "cuda"), *static)(*arrays))
     d_starts = h["d_starts"].cpu().numpy()[1:h["npz"] + 1]
-    _check_tables(ref, got, int(pfp.phrase_ln.max()), d_starts)
+    _check_tables(ref, got, h["total_real"], d_starts)

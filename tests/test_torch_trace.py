@@ -53,6 +53,7 @@ PARTS = {
     "engine.emit_mems.join": {"engine.emit"},
     "kernels.load": {"pfp.build.breaks", "pfp.build.sort"},
     "pfp.rmq": {"pfp.parse_side", "pfp.expand_sort_analyze"},
+    "pfp.dict.sa": {"pfp.dict_index"}, "pfp.dict.lcp": {"pfp.dict_index"},
 }
 PFP = ["build_pfp", "dict_index", "parse_side", "expand_sort_analyze"]
 DIRECT = ["suffix_array", "lcp", "analyze"]
@@ -192,7 +193,10 @@ def test_span_tree_of_a_call(route, tmp_path):
         assert {"direct.text", "pfp.alphabet"} <= names
     pfp = ROUTES[route][1] == "pfp"
     assert ("pfp.rmq" in names) == pfp
-    assert (ops_pfp.RMQ_BYTES in got["counters"][root["id"]]) == pfp
+    assert ({"pfp.dict.sa", "pfp.dict.lcp"} <= names) == pfp
+    counted = got["counters"][root["id"]]
+    assert (ops_pfp.RMQ_BYTES in counted) == pfp
+    assert (trace.DICT_SORT_ROWS in counted) == pfp
     mem = "rare_freq" in ROUTES[route][0]
     assert ({"engine.emit_mems.positions", "engine.emit_mems.format",
              "engine.emit_mems.join"} <= names) == mem

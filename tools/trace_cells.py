@@ -11,6 +11,10 @@ is called on it:
 - a cold call and a warm one with tracing on (mumemto_tpu_torch.trace):
   each call's stages and the load spans (kernels.load, native.load),
   seconds by span name, logged to stderr;
+- one call under the engine's phase hook, which synchronizes the card at
+  each stage's end: each stage's seconds and the peak of allocated device
+  memory inside it (the peak statistics reset at each stage's start), so
+  the stage that sets a cell's peak_gib is named;
 - `--pairs` pairs of calls, tracing off then on, each timed to the card's
   end: the median wall of each and what tracing costs (and, once, the
   host time of one span with tracing off, on, and on under a recording
@@ -175,6 +179,29 @@ def one_cell(cell: str, seed: int, pairs: int, profiled: int, dev,
                       "n_spans": len(kept["spans"])}
         log(f"[trace_cells] {cell} {label} call {wall:.3f} s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    # each stage's seconds and peak, the card synchronized at its end
+    stages = {}
+    mark = [time.perf_counter()]
+
+    def hook(name):
+        sync()
+        now = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        stages[name] = {"s": round(now - mark[0], 4),
+                        "peak_gib": round(peak / 2**30, 3)}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        mark[0] = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mark[0] = time.perf_counter()
+    engine.find_matches(rb, opts, device=dev, pfp_w=config["w"],
+                        pfp_mod=config["mod"], backend=mix["backend"],
+                        phase=hook, show_progress=False)
+    out["stages"] = stages
+    log(f"[trace_cells] {cell} stages (s, peak GiB): " + ", ".join(
+        f"{k} {v['s']:.3f} {v['peak_gib']:.3f}" for k, v in stages.items()))
 
     # what tracing costs: off, on, off, on ...
     walls = {"off": [], "on": []}
