@@ -37,6 +37,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      for byte, timed by CUDA events beside its bytes bound and the twin's
      host time; every find_matches call of a MEM path below must launch
      it once (_drive, library.mem);
+ 4e. the byte-presence kernel (phase_alphabet) against its plain twin
+     (kernels/alphabet.byte_presence_plain) at 2^24, 2^28 and 2^31 bytes
+     of a planted alphabet, whole and from byte 1, 0 mismatches, timed by
+     CUDA events beside its bytes bound, with the host time of the
+     wrapper and its readback and the twin's; every path below must
+     launch it once a KR launch, and once a -g call (_sorted, _drive);
   5. the main path end to end on the bench input (bench.synth_collection,
      8 docs, 0.1% SNP, revcomp, strict multi-MUMs) at 8 and 32 Mbp: stage
      times, Mbp/s, peak device memory, and the match count against a live
@@ -183,12 +189,13 @@ from mumemto_tpu_torch import bench  # noqa: E402
 
 LAUNCH_KEYS = ("kr_break_mask", "add_one", "running_scan",  # bench.counted's
                "phrase_fingerprint", "phrase_verify", "phrase_tail_rank",
-               "mem_render")
+               "mem_render", "alphabet")
 KR_SOURCE = "mumemto_tpu_torch/kernels/csrc/kr_mask.cu"
 KR_REPLACES = "mumemto_tpu/ops/pallas_kernels.py:103"
 SCAN_SOURCE = "mumemto_tpu_torch/kernels/csrc/scan.cu"
 PHRASES_SOURCE = "mumemto_tpu_torch/kernels/csrc/phrases.cu"
 RENDER_SOURCE = "mumemto_tpu_torch/kernels/csrc/mem_render.cu"
+ALPHABET_SOURCE = "mumemto_tpu_torch/kernels/csrc/alphabet.cu"
 PROBE_SOURCE = "mumemto_tpu_torch/kernels/csrc/add_one.cu"
 PROBE_REPLACES = "tools/mosaic_probe.py:25"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the data sheet's peak)
@@ -895,6 +902,89 @@ def phase_mem_render(torch, report, lines=92_000):
     report["mem_render"] = out
 
 
+# the presence kernel's sizes: a bench text's 2^24, the human cell's 2^28
+# bucket, and one past int32 lengths
+ALPHABET_SIZES = (2**24, 2**28, 2**31)
+# (position, value) planted into the ACGT bytes: a value only at the first
+# byte, the last byte, the middle and near the end
+ALPHABET_PLANTS = ((0, 2), (-1, 36), (None, 78), (-17, 1))
+
+
+def _planted(torch, n, dev):
+    """n bytes of 65, 68, 71 and 74 on dev with ALPHABET_PLANTS (None: the
+    middle, n // 2 + 7) set."""
+    t = torch.randint(0, 4, (n,), dtype=torch.uint8, device=dev)
+    t.mul_(3).add_(65)
+    for at, v in ALPHABET_PLANTS:
+        t[n // 2 + 7 if at is None else at] = v
+    return t
+
+
+def _presence_plain(torch, t, chunk=2**28):
+    """The twin's flags of a card tensor, read back and taken a chunk at a
+    time (a presence set is the union of its chunks')."""
+    from mumemto_tpu_torch.kernels import alphabet
+    flags = torch.zeros(256, dtype=torch.bool)
+    for i in range(0, t.numel(), chunk):
+        flags |= alphabet.byte_presence_plain(t[i:i + chunk].cpu())
+    return flags
+
+
+def phase_alphabet(torch, report, sizes=ALPHABET_SIZES):
+    """The byte-presence kernel (kernels/alphabet) against its plain twin
+    at `sizes`, on the whole tensor and on the view from byte 1 (not
+    16-byte aligned, and without the value planted at byte 0): flags equal.
+    Each is timed by CUDA events (median of 5 runs of 20 launches) beside
+    its bound, n bytes read once at HBM_BYTES_PER_S; the wrapper with its
+    one readback by the host clock (median of 5), and the twin's host time
+    on the second size (the human cell's bucket)."""
+    from mumemto_tpu_torch import engine
+    from mumemto_tpu_torch.kernels import alphabet
+    dev = engine.resolve("cuda")
+    torch.manual_seed(23)
+    out = {"card": bench.smi(), "cases": {}}
+    for n in sizes:
+        t = _planted(torch, n, dev)
+        for start in (0, 1):
+            view = t[start:]
+            got = alphabet.byte_presence(view).cpu()
+            t0 = time.perf_counter()
+            want = _presence_plain(torch, view)
+            plain_s = time.perf_counter() - t0
+            bad = int((got != want).sum())
+            case = {"bytes": view.numel(), "start": start,
+                    "values": torch.nonzero(got).flatten().tolist(),
+                    "mismatches": bad}
+            if start == 0:
+                case["ms"] = statistics.median(_event_ms(
+                    torch, lambda: alphabet.byte_presence(view), 20)
+                    for _ in range(5))
+                case["bound_ms"] = view.numel() / HBM_BYTES_PER_S * 1e3
+                case["share_of_bound"] = case["bound_ms"] / case["ms"]
+                walls = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    alphabet.byte_presence(view).cpu()
+                    walls.append(time.perf_counter() - t0)
+                case["with_readback_ms"] = statistics.median(walls) * 1e3
+                if n == sizes[1]:
+                    case["plain_ms"] = plain_s * 1e3
+            label = f"2^{n.bit_length() - 1} from byte {start}"
+            out["cases"][label] = case
+            log(f"[alphabet] {label}: {json.dumps(case)}")
+            if bad or len(case["values"]) != 8 - start:
+                raise AssertionError(f"byte_presence {label}: {bad} flags "
+                                     f"differ from the twin's, values "
+                                     f"{case['values']}")
+        del t, view
+        torch.cuda.empty_cache()
+    main = out["cases"][f"2^{sizes[1].bit_length() - 1} from byte 0"]
+    out.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms")})
+    out["mismatches"] = 0
+    report["alphabet"] = out
+
+
 def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     """One path end to end on the card: a cold and a warm find_matches,
     their kernel launches counted (bench.counted), then a live
@@ -902,7 +992,8 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
     equal the baseline's and be above 0. The PFP backend must
     have launched the KR kernel in both runs, the direct backend never;
     both must have launched the running max / min kernel, and in MEM mode
-    the MEM text kernel once a run (never in MUM mode).
+    the MEM text kernel once a run (never in MUM mode); the presence
+    kernel once a run on both backends.
     Returns (record, warm result)."""
     from mumemto_tpu_torch import engine
     cold, cold_s, l_cold = bench.counted(torch, lambda: engine.find_matches(
@@ -920,6 +1011,9 @@ def _drive(torch, label, rb, opts, mbp, backend="pfp"):
         raise AssertionError(f"{label}: the direct backend launched "
                              f"kernels: {launches}")
     _scanned(label, launches)
+    if launches["alphabet"] != 2:
+        raise AssertionError(f"{label}: {launches['alphabet']} presence "
+                             "kernel launches in two runs")
     if launches["mem_render"] != (0 if opts.mum_mode else 2):
         raise AssertionError(f"{label}: {launches['mem_render']} MEM text "
                              "kernel launches in two runs")
@@ -1137,7 +1231,8 @@ def phase_routes(torch, report, pfp_mums: bytes):
     if l_P["kr_break_mask"] < 1 or l_A["kr_break_mask"] < 1:
         raise AssertionError(f"-P/-A did not launch the KR kernel: {l_P} "
                              f"{l_A}")
-    if any(_kr_of(l_p).values()) or any(_kr_of(l_a).values()):
+    if any(_kr_of(l_p).values()) or any(_kr_of(l_a).values()) or \
+            l_p["alphabet"] or l_a["alphabet"]:
         raise AssertionError(f"-p/-a launched kernels: {l_p} {l_a}")
     for label, launches in (("-p", l_p), ("-A", l_A), ("-a", l_a)):
         _scanned(label, launches)
@@ -1256,10 +1351,14 @@ def _sorted(label, launches):
     """Each build_pfp of a path (one a KR launch) must have ranked its
     phrases on the card: one phrase_fingerprint and one phrase_verify
     launch, at most one phrase_tail_rank; a path without a KR launch
-    (-g, -p, -a) none of them."""
-    if not bench.sorted_on_card(launches, launches["kr_break_mask"]):
-        raise AssertionError(f"{label}: phrase kernel launches {launches}, "
-                             f"{launches['kr_break_mask']} KR launches")
+    (-g, -p, -a) none of them. A path with KR launches (it makes no -g
+    call) must have taken as many alphabets on the card; a -g call takes
+    one too, which _drive and phase_real count."""
+    kr = launches["kr_break_mask"]
+    if not bench.sorted_on_card(launches, kr) or \
+            (kr and launches["alphabet"] != kr):
+        raise AssertionError(f"{label}: phrase or presence kernel launches "
+                             f"{launches}, {kr} KR launches")
 
 
 def _mums_set(path, num_docs, order=None):
@@ -2371,7 +2470,8 @@ def phase_real(torch, report, mbp=8, mbp_big=32, mbp_bytes=1):
             row_e["acgt"] = {k: acgt_g[k] for k in (
                 "wall_s", "matches", "peak_alloc_bytes", "index")}
         log(f"[real] {key}: {json.dumps(row_e)}")
-        if not row_e["bytes_equal_pfp_row"] or any(_kr_of(lg).values()):
+        if not row_e["bytes_equal_pfp_row"] or any(_kr_of(lg).values()) \
+                or lg["alphabet"] != 1:
             raise AssertionError(f"{label}: bytes != the PFP row's, or "
                                  f"kernels launched: {lg}")
         _scanned(label, lg)
@@ -2453,7 +2553,8 @@ def phase_bench(torch, report, argv=BENCH_ARGV):
         out["paths"][f"bench {rec['config']}"] = {
             "kr_break_mask": rec["kr_launches"] * rec["calls"], "add_one": 0,
             "running_scan": rec["scan_launches"], **rec["phrase_launches"],
-            "mem_render": rec["render_launches"]}
+            "mem_render": rec["render_launches"],
+            "alphabet": rec["alphabet_launches"]}
     report["bench"] = out
 
 
@@ -4061,6 +4162,7 @@ def main() -> int:
     phase_scan(torch, report)
     phase_phrases(torch, report)
     phase_mem_render(torch, report)
+    phase_alphabet(torch, report)
     res_8mbp, mums_32mbp = phase_end_to_end(torch, report)
     res_f3 = phase_mem(torch, report)
     phase_walk(torch, report)
@@ -4139,6 +4241,14 @@ def main() -> int:
         "ms": report["mem_render"]["ms"],
         "plain_ms": report["mem_render"]["plain_ms"],
         "bound_ms": report["mem_render"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "byte_presence", "route": "cuda", "source": ALPHABET_SOURCE,
+        "replaces": None, "launches": sum(
+            v["alphabet"] for v in report["path_launches"].values()),
+        "max_abs_err": report["alphabet"]["mismatches"],
+        "ms": report["alphabet"]["ms"],
+        "plain_ms": report["alphabet"]["plain_ms"],
+        "bound_ms": report["alphabet"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None}]}
     device = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,9 @@ on a card, one call under torch.profiler, and prints one JSON line on
 stdout: walls (median, best, max, spread), Mbp/s, the stage split, each
 card's peak allocation over the timed calls, the device's busy share, the
 KR kernel's launches per call, the running max / min kernel's, the
-phrase kernels' and the MEM text kernel's launches over all calls (each
-call must have sorted its phrases on the card once a KR launch), the
+phrase kernels', the MEM text kernel's and the presence kernel's launches
+over all calls (each call must have sorted its phrases on the card once a
+KR launch, and taken its alphabet there once a KR launch or -g call), the
 count against the one on
 record and,
 where it ran, against a live native/baseline_cpu run on the same bytes
@@ -379,11 +380,12 @@ def counted(torch, fn):
 def launch_counts(totals: dict) -> dict:
     """Every kernel's launches in trace.totals()'s counts, by the kernel's
     name."""
-    from mumemto_tpu_torch.kernels import (kr_mask, mem_render, phrases,
-                                           probe, scan)
+    from mumemto_tpu_torch.kernels import (alphabet, kr_mask, mem_render,
+                                           phrases, probe, scan)
     counters = {"kr_break_mask": kr_mask.COUNTER, "add_one": probe.COUNTER,
                 "running_scan": scan.COUNTER, **phrases.COUNTERS,
-                "mem_render": mem_render.COUNTER}
+                "mem_render": mem_render.COUNTER,
+                "alphabet": alphabet.COUNTER}
     return {k: totals.get(c, 0) for k, c in counters.items()}
 
 
@@ -644,6 +646,8 @@ def run_config(torch, cfg, dev, args) -> dict:
     on_card = dev.type == "cuda"
     devices = _devices(torch, cfg, dev)
     per_call = _launches_per_call(cfg) if on_card else 0
+    # the presence kernel: once a build_pfp (a KR launch), once a -g call
+    alphabets = per_call + (cfg.route == "direct") if on_card else 0
 
     t0 = time.perf_counter()
     docs = _collection(cfg, mbp, ndocs, seed, snp)
@@ -654,23 +658,25 @@ def run_config(torch, cfg, dev, args) -> dict:
         del docs
         log(f"[bench] {cfg.name}: {mbp:g} Mbp, {ndocs} docs, "
             f"{rb.text.size} chars, set up in {time.perf_counter() - t0:.1f} s")
-        n_calls = scans = renders = 0
+        n_calls = scans = renders = presences = 0
         phrase_launches = dict.fromkeys(phrases.KERNELS, 0)
 
         def call(fn):
-            nonlocal n_calls, scans, renders
+            nonlocal n_calls, scans, renders, presences
             out, s, launches = counted(torch, fn)
             n_calls += 1
             scans += launches["running_scan"]
             renders += launches["mem_render"]
+            presences += launches["alphabet"]
             for k in phrase_launches:
                 phrase_launches[k] += launches[k]
             got = route.count(out)
-            if (launches["kr_break_mask"], launches["add_one"]) != \
-                    (per_call, 0) or not sorted_on_card(launches, per_call):
+            if (launches["kr_break_mask"], launches["add_one"],
+                    launches["alphabet"]) != (per_call, 0, alphabets) or \
+                    not sorted_on_card(launches, per_call):
                 _fail(cfg, f"kernel launches {launches} in one call, "
-                      f"expected {per_call} KR launches and phrase sorts "
-                      "and no add_one")
+                      f"expected {per_call} KR launches and phrase sorts, "
+                      f"{alphabets} presence launches and no add_one")
             if expected is not None and got != expected:
                 _fail(cfg, f"{got} matches, {expected} on record")
             return out, s, got
@@ -736,9 +742,11 @@ def run_config(torch, cfg, dev, args) -> dict:
             n_calls += 1
             scans += launches["running_scan"]
             renders += launches["mem_render"]
+            presences += launches["alphabet"]
             for k in phrase_launches:
                 phrase_launches[k] += launches[k]
             if launches["kr_break_mask"] != per_call or got != matches or \
+                    launches["alphabet"] != alphabets or \
                     not sorted_on_card(launches, per_call):
                 _fail(cfg, f"the traced call: {got} matches, launches "
                       f"{launches}")
@@ -779,7 +787,7 @@ def run_config(torch, cfg, dev, args) -> dict:
         "busy_share": busy["busy_s"] / busy["traced_s"] if busy else None,
         "busy": busy, "kr_launches": per_call,
         "scan_launches": scans, "phrase_launches": phrase_launches,
-        "render_launches": renders,
+        "render_launches": renders, "alphabet_launches": presences,
         "calls": n_calls,
         "matches": matches, "expected": expected, "baseline": base,
         "vs_baseline": mbp / best / base["mbp_per_s"] if base else None}

@@ -205,18 +205,16 @@ def _find_matches_inner(rb, opts, dev, pfp_w, pfp_mod, backend,
             size_cap=size_cap, need_ctx=opts.merge)
         del pfp  # its device arrays go before the compaction
     elif backend == "direct":
-        # the PFP dict stage's alphabet levers; the pad byte 0 is part of
-        # the padded text's alphabet
-        seed_thr, lcp_thr = ops_pfp.seed_thresholds(
-            set(ops_pfp._alphabet(rb.text)) | {0})
         with trace.span("direct.text"):
             n_real = int(rb.text.size)
             # at least 4 zero bytes past the text
             n = ops_suffix.bucket(n_real + 4, lo=4096)
-            text = np.zeros(n, dtype=np.uint8)
-            text[:n_real] = rb.text
-            text = torch.from_numpy(text).to(dev)
+            text = _padded_text(rb, n, dev)
             doc_ends = torch.from_numpy(rb.doc_ends).to(dev)
+        # the PFP dict stage's alphabet levers; the pad byte 0 is part of
+        # the padded text's alphabet
+        seed_thr, lcp_thr = ops_pfp.seed_thresholds(
+            set(ops_pfp._alphabet(text[:n_real])) | {0})
         res, counts = ops_pipeline.scan_collection(
             text, doc_ends, n, rb.num_docs,
             opts.min_match_len, opts.num_distinct, opts.max_total_freq,
@@ -305,15 +303,22 @@ def _write_arrays_from_res(res, prefix: str, num_docs: int) -> None:
     formats.write_rl_bwt(prefix + ".bwt", bwt)
 
 
+def _padded_text(rb, n: int, dev) -> torch.Tensor:
+    """rb's text zero-padded to n bytes on dev: allocated there, its pad
+    zeroed there and the text copied in once."""
+    n_real = int(rb.text.size)
+    text = torch.empty(n, dtype=torch.uint8, device=dev)
+    text[n_real:].zero_()
+    text[:n_real].copy_(torch.from_numpy(rb.text))
+    return text
+
+
 def compute_arrays(rb, device="cuda", padded_n: int | None = None):
     """The direct index of rb's zero-padded text (padded to padded_n, or
     as the direct backend pads it) on `device`: numpy (sa, lcp, bwt, da)."""
-    n_real = int(rb.text.size)
-    n = padded_n or ops_suffix.bucket(n_real + 4, lo=4096)
-    text = np.zeros(n, dtype=np.uint8)
-    text[:n_real] = rb.text
+    n = padded_n or ops_suffix.bucket(int(rb.text.size) + 4, lo=4096)
     dev = resolve(device)
-    sa, lcp, bwt = ops_suffix.suffix_lcp_arrays(torch.from_numpy(text).to(dev))
+    sa, lcp, bwt = ops_suffix.suffix_lcp_arrays(_padded_text(rb, n, dev))
     da = ops_suffix.doc_array(sa, torch.from_numpy(rb.doc_ends).to(dev),
                               rb.num_docs)
     return tuple(_to_host([sa, lcp, bwt, da]))

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from mumemto_tpu_torch import trace
-from mumemto_tpu_torch.kernels import kr_mask, phrases, scan
+from mumemto_tpu_torch.kernels import alphabet, kr_mask, phrases, scan
 from mumemto_tpu_torch.ops import intervals as ops_intervals
 from mumemto_tpu_torch.ops import suffix as ops_suffix
 from mumemto_tpu_torch.ops.suffix import I32, I64
@@ -351,29 +351,29 @@ def seed_thresholds(alpha):
     return seed_thr, lcp_thr
 
 
-def _alphabet(bytes_np: np.ndarray) -> tuple:
-    """Sorted distinct byte values via a presence mask over a uint16 view."""
+def _alphabet(data) -> tuple:
+    """Sorted distinct byte values of data, the span pfp.alphabet: of a
+    1-D uint8 tensor on its device (kernels/alphabet.byte_presence, the
+    kernel on a card), read back once; of a numpy array on the host
+    (the plain twin), with no readback."""
     with trace.span("pfp.alphabet"):
-        bytes_np = np.ascontiguousarray(bytes_np)
-        even = bytes_np[:bytes_np.size & ~1]
-        present16 = np.zeros(65536, np.bool_)
-        present16[even.view(np.uint16)] = True
-        pairs = np.flatnonzero(present16)
-        present = np.zeros(256, np.bool_)
-        present[pairs & 255] = True
-        present[pairs >> 8] = True
-        if bytes_np.size & 1:
-            present[bytes_np[-1]] = True
-        return tuple(np.flatnonzero(present).tolist())
+        if isinstance(data, np.ndarray):
+            flags = alphabet.byte_presence_plain(data)
+        else:
+            trace.count(trace.READBACKS)
+            flags = alphabet.byte_presence(data).cpu()
+        return tuple(np.flatnonzero(flags.numpy()).tolist())
 
 
 def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
               mod: int = 100) -> PFPData:
-    """Parse the collection text: upload ext, KR breaks, the phrase records
-    and their lexicographic ranks on the device (sort_phrases). Phrase
-    coordinates are int32, so ext ([2] + text + [2]*w) must stay below
-    2^31 bytes: a longer text raises ScanSizeError before anything is
-    copied. Its parts are the spans pfp.build.text, pfp.alphabet,
+    """Parse the collection text: upload ext, its alphabet, KR breaks, the
+    phrase records and their lexicographic ranks on the device
+    (sort_phrases). Phrase coordinates are int32, so ext ([2] + text +
+    [2]*w) must stay below 2^31 bytes: a longer text raises ScanSizeError
+    before anything is copied. Its parts are the spans pfp.build.text
+    (ext allocated at its bucket size on the device, its sentinels and
+    zero pad filled there, the text copied in once), pfp.alphabet,
     pfp.build.breaks, pfp.build.records and pfp.build.sort."""
     n_text = int(text_np.size)
     if n_text + w + 1 >= 2**31:
@@ -382,14 +382,14 @@ def build_pfp(text_np: np.ndarray, device: torch.device, w: int = 10,
             f"coordinates (at most 2^31 - {w + 2} with w = {w}); partition "
             "the collection (MumemtoM)")
     with trace.span("pfp.build.text"):
-        ext_np = np.concatenate([
-            np.full(1, DOLLAR_PFP, np.uint8), text_np,
-            np.full(w, DOLLAR_PFP, np.uint8)])
-        ne = ops_suffix.bucket(ext_np.size, lo=1024)
-        ext_pad = np.zeros(ne, np.uint8)
-        ext_pad[:ext_np.size] = ext_np
-        ext = torch.from_numpy(ext_pad).to(device)
-    alpha = _alphabet(ext_np)
+        end = 1 + n_text + w
+        ext = torch.empty(ops_suffix.bucket(end, lo=1024), dtype=torch.uint8,
+                          device=device)
+        ext[:1].fill_(DOLLAR_PFP)
+        ext[1 + n_text:end].fill_(DOLLAR_PFP)
+        ext[end:].zero_()
+        ext[1:1 + n_text].copy_(torch.from_numpy(text_np))
+    alpha = _alphabet(ext[:end])
 
     with trace.span("pfp.build.breaks"):
         breaks = compute_breaks(ext, n_text, w, mod)

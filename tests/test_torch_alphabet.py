@@ -145,6 +145,69 @@ def test_seed_thresholds(kind):
     assert (got[0] is None) == (got[1] is None) == (kind == "iupac")
 
 
+def _host_alphabet(bytes_np: np.ndarray) -> tuple:
+    """The oracle: the alphabet as the host took it before the device did,
+    sorted distinct byte values from a presence mask over a uint16 view."""
+    bytes_np = np.ascontiguousarray(bytes_np)
+    even = bytes_np[:bytes_np.size & ~1]
+    present16 = np.zeros(65536, np.bool_)
+    present16[even.view(np.uint16)] = True
+    pairs = np.flatnonzero(present16)
+    present = np.zeros(256, np.bool_)
+    present[pairs & 255] = True
+    present[pairs >> 8] = True
+    if bytes_np.size & 1:
+        present[bytes_np[-1]] = True
+    return tuple(np.flatnonzero(present).tolist())
+
+
+@pytest.mark.parametrize("kind", ["acgt"] + KINDS)
+def test_build_pfp_ext_and_alpha_equal_the_host_construction(kind):
+    """ext byte for byte, zero pad included, as the host concatenated and
+    padded it before the upload; alpha that ext's (without the pad), by
+    the host oracle and by the JAX package."""
+    text = _rb(kind).text
+    pt = t_pfp.build_pfp(text, CPU, w=10, mod=100)
+    ext_np = np.concatenate([np.full(1, t_pfp.DOLLAR_PFP, np.uint8), text,
+                             np.full(10, t_pfp.DOLLAR_PFP, np.uint8)])
+    ne = t_pfp.ops_suffix.bucket(ext_np.size, lo=1024)
+    want = np.zeros(ne, np.uint8)
+    want[:ext_np.size] = ext_np
+    assert pt.ext.dtype == torch.uint8 and tuple(pt.ext.shape) == (ne,)
+    assert _eq(pt.ext, want)
+    assert pt.alpha == _host_alphabet(ext_np) == jax_pfp._alphabet(ext_np)
+    assert (ord("N") in pt.alpha) == (kind != "acgt")
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("kind", ["acgt"] + KINDS)
+def test_direct_seed_thresholds_unchanged(kind, monkeypatch):
+    """-g's seed and LCP thresholds, from the alphabet of its uploaded
+    text and the pad's 0, are those of the host text's bytes."""
+    rb = _rb(kind)
+    got = {}
+
+    def scan(*a, **kw):
+        got.update(seed=kw["alpha_thresholds"], lcp=kw["lcp_thresholds"],
+                   text=a[0].clone())
+        raise _Stop
+    monkeypatch.setattr(t_engine.ops_pipeline, "scan_collection", scan)
+    with pytest.raises(_Stop):
+        t_engine.find_matches(rb, options.normalize(rb.num_docs, quiet=True),
+                              device="cpu", backend="direct")
+    letters = set(_host_alphabet(rb.text)) | {0}
+    want = t_pfp.seed_thresholds(letters)
+    assert (got["seed"], got["lcp"]) == want == jax_pfp.seed_thresholds(
+        set(jax_pfp._alphabet(rb.text)) | {0})
+    n = t_pfp.ops_suffix.bucket(rb.text.size + 4, lo=4096)
+    padded = np.zeros(n, np.uint8)
+    padded[:rb.text.size] = rb.text
+    assert _eq(got["text"], padded)
+
+
 @functools.lru_cache(maxsize=None)
 def _staged(kind):
     rb = _rb(kind)

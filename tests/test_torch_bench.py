@@ -311,7 +311,8 @@ def test_chip_smoke_phase_bench_rehearsal(monkeypatch):
     assert report["bench"]["paths"] == {
         f"bench {n}": {"kr_break_mask": 0, "add_one": 0, "running_scan": 0,
                        "phrase_fingerprint": 0, "phrase_verify": 0,
-                       "phrase_tail_rank": 0, "mem_render": 0}
+                       "phrase_tail_rank": 0, "mem_render": 0,
+                       "alphabet": 0}
         for n in ("mum8", "real8", "f3_8")}
 
 

@@ -32,7 +32,8 @@ from mumemto_tpu_torch import bench as t_bench
 from mumemto_tpu_torch import device as t_device
 from mumemto_tpu_torch import engine as t_engine
 from mumemto_tpu_torch import trace
-from mumemto_tpu_torch.kernels import kr_mask, mem_render, phrases, scan
+from mumemto_tpu_torch.kernels import (alphabet, kr_mask, mem_render,
+                                       phrases, scan)
 from mumemto_tpu_torch.ops import intervals as t_intervals
 from mumemto_tpu_torch.ops import pfp as t_pfp
 from mumemto_tpu_torch.ops import suffix as t_suffix
@@ -271,9 +272,10 @@ class _TorchOnCpu:
 
 
 def _count_scans(monkeypatch):
-    """The running max / min, the phrase kernels and the MEM text kernel as
-    the rehearsals see them: their plain versions, each call counted in the
-    kernel's trace counter as a launch on the card is."""
+    """The running max / min, the phrase kernels, the MEM text kernel and
+    the presence kernel as the rehearsals see them: their plain versions,
+    each call counted in the kernel's trace counter as a launch on the
+    card is."""
     def counted(op):
         def run(x, reverse=False):
             trace.count(scan.COUNTER)
@@ -298,6 +300,11 @@ def _count_scans(monkeypatch):
         trace.count(mem_render.COUNTER)
         return render(*a)
     monkeypatch.setattr(mem_render, "render", counted_render)
+
+    def counted_presence(t):
+        trace.count(alphabet.COUNTER)
+        return alphabet.byte_presence_plain(t)
+    monkeypatch.setattr(alphabet, "byte_presence", counted_presence)
 
 
 def _kr_part(launches):
@@ -330,6 +337,26 @@ def test_phase_mem_render_rehearsal(chip_smoke, monkeypatch):
     wide = out["cases"]["4096 wide"]
     assert wide["W"] == 4096 and wide["mismatched_bytes"] == 0
     assert wide["bytes"] > 300 * 4096  # lines of thousands of occurrences
+
+
+def test_phase_alphabet_rehearsal(chip_smoke, monkeypatch):
+    """chip_smoke's phase 4e at 2^12, 2^14 and 2^15 + 3 bytes on the CPU:
+    "cuda" resolves to the CPU, so byte_presence runs its twin, CUDA
+    events are host clocks, and nvidia-smi is not asked."""
+    monkeypatch.setattr(t_engine, "resolve", lambda device:
+                        torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke.bench, "smi", lambda: "no card")
+    report = {}
+    chip_smoke.phase_alphabet(_TorchOnCpu(), report,
+                              sizes=(2**12, 2**14, 2**15 + 3))
+    out = report["alphabet"]
+    assert out["mismatches"] == 0 and len(out["cases"]) == 6
+    whole = out["cases"]["2^14 from byte 0"]
+    assert whole["values"] == [1, 2, 36, 65, 68, 71, 74, 78]
+    assert out["cases"]["2^15 from byte 1"]["values"] == \
+        [1, 36, 65, 68, 71, 74, 78]
+    assert 0 < out["bound_ms"] and out["ms"] == whole["ms"] > 0
+    assert out["plain_ms"] == whole["plain_ms"] > 0
 
 
 def test_phase_scale_rehearsal(chip_smoke, monkeypatch):
